@@ -1,0 +1,394 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (vsta_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (exit code != 0):
+
+1. device: the card's name and power limit; TF32 off for the f32 phases;
+2. build: the CUDA kernel from the source in this checkout (nvcc);
+3. kernel vs plain version at the flagship warp shapes (V=7, P=34*60,
+   N=120*360, K=16*128, LUT from ring cameras): each case's max error,
+   the kernel's time, its plain version's, the torch.sparse.mm
+   yardstick's and the least time the card could take;
+4. serving: configs/wildtrack.yaml at full width with random weights
+   (bf16, batch 16 and 1, and f32 at batch 16, which takes the
+   windowed dispatch), launch counts, latency, frames/s, peak memory;
+   each layer's time (CUDA events) and one request under torch.profiler
+   (device busy share, top kernels); the bf16 heatmaps at batch 16 and 1
+   against the same requests with the warp swapped for its plain
+   version; a small f32 model on the card against the CPU.
+
+Prints the kernels JSON line, the nvidia-smi line, then as the last line
+``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
+and outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+FLAGSHIP = ROOT / "configs" / "wildtrack.yaml"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# peak operation rate by input type (H100 SXM data sheet, dense): bf16 on
+# the tensor cores, float32 outside them
+PEAK_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+WARP_TPU = "vsta_tpu/ops/warp_pallas.py"
+WARP_SRC = "vsta_tpu_torch/csrc/warp_tiles.cu"
+WARP_K = 16 * 128  # flagship batch 16 x BEV_PROJ_CH 128
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def flagship_lut(dev):
+    from vsta_tpu_torch.data.synthetic import make_ring_camera
+    from vsta_tpu_torch.geometry import bev_sample_coords_with_depth, ground_grid
+
+    Ks, Rts = zip(*(make_ring_camera(v, 7, img_hw=(270, 480)) for v in range(7)))
+    K = torch.tensor(np.stack(Ks), dtype=torch.float32, device=dev)
+    Rt = torch.tensor(np.stack(Rts), dtype=torch.float32, device=dev)
+    grid = ground_grid(120, 360, (-24.0, 24.0, -7.2, 7.2), device=dev)
+    coords, _ = bev_sample_coords_with_depth(K, Rt, (270, 480), (34, 60), grid)
+    return coords.reshape(7, -1, 2)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().float().clamp_min(2.0**-126)))
+    return torch.exp2(e - 7)
+
+
+def kernel_phase(dev):
+    from vsta_tpu_torch.ops.warp import precompute_warp_lut
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    V, P, K = 7, 34 * 60, WARP_K
+    coords = flagship_lut(dev)
+    N = coords.shape[1]
+    idx, wts = precompute_warp_lut(coords, (34, 60))
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = torch.randn((V, P, K), generator=g, device=dev)
+    bf = f32.to(torch.bfloat16)
+    errs = {}
+
+    def compare(name, feats, i, w, out_dtype, rule):
+        got = warp_tiles(feats, i, w, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ref = warp_tiles_ref(feats, i, w, out_dtype=out_dtype)
+        check(got.dtype == out_dtype and got.shape == ref.shape, f"{name}: shape/dtype")
+        diff = (got.float() - ref.float()).abs()
+        if rule == "bf16":  # 1 bf16 ulp of |ref| (+1e-6 max|ref| where sums cancel)
+            tol = bf16_ulp(ref) + 1e-6 * ref.float().abs().max()
+            ok = bool((diff <= tol).all())
+            rule_s = "<= 1 bf16 ulp of |ref| + 1e-6*max|ref|"
+        elif rule == "zero":
+            ok = bool((got == 0).all())
+            rule_s = "exactly 0"
+        else:
+            tol = 1e-5 * float(ref.float().abs().max())
+            ok = float(diff.max()) <= tol
+            rule_s = f"<= 1e-5*max|ref| = {tol:.3e}"
+        err = float(diff.max())
+        errs[name] = err
+        log(f"[kernel] {name}: max_abs_err={err:.3e} ({rule_s}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"kernel case {name} disagrees with the plain version")
+
+    compare(f"bf16->bf16 K={K}", bf, idx, wts, torch.bfloat16, "bf16")
+    compare(f"f32->f32 K={K}", f32, idx, wts, torch.float32, "f32")
+    compare(f"bf16->f32 K={K}", bf, idx, wts, torch.float32, "f32")
+    blind = torch.zeros_like(wts)
+    compare("all views blind, poisoned, bf16", torch.full_like(bf, 1e6), idx, blind, torch.bfloat16, "zero")
+    compare("all views blind, poisoned, f32", torch.full_like(f32, 1e6), idx, blind, torch.float32, "zero")
+    bad = coords.clone()
+    bad[:, ::97, 0] = float("nan")
+    bad[:, 5::89, 1] = float("inf")
+    bad[:, 7::101] = -float("inf")
+    bidx, bwts = precompute_warp_lut(bad, (34, 60))
+    compare("non-finite coords f32", f32, bidx, bwts, torch.float32, "f32")
+    # batch 1's shape on the main path: K = 128, the vectorised path with
+    # 64 cells a block
+    compare("bf16->bf16 K=128 (batch 1)", bf[..., :128].contiguous(), idx, wts, torch.bfloat16, "bf16")
+    for Kr in (100, 13):
+        compare(f"ragged K={Kr} bf16", bf[..., :Kr].contiguous(), idx, wts, torch.bfloat16, "bf16")
+        compare(f"ragged K={Kr} f32", f32[..., :Kr].contiguous(), idx, wts, torch.float32, "f32")
+
+    # timing at the main path's shapes
+    nz = wts != 0
+    nnz = int(nz.sum())
+    rows = torch.unique((torch.arange(V, device=dev)[:, None, None] * P + idx)[nz]).numel()
+    vals = wts[nz]
+    row_of = torch.arange(N, device=dev)[None, :, None].expand(V, N, 4)[nz]
+    col_of = (torch.arange(V, device=dev)[:, None, None] * P + idx)[nz].long()
+    coo = torch.sparse_coo_tensor(torch.stack([row_of, col_of]), vals, (N, V * P)).coalesce()
+    entries = []
+    for name, feats, out_dtype, replaces in (
+        ("warp_tiles (resident dispatch: compute-dtype out)", bf, torch.bfloat16, f"{WARP_TPU}:162"),
+        ("warp_tiles (windowed dispatch: f32 out)", f32, torch.float32, f"{WARP_TPU}:353"),
+    ):
+        ms = cuda_ms(warp_tiles, feats, idx, wts, out_dtype=out_dtype, warmup=5, iters=50)
+        plain_ms = cuda_ms(warp_tiles_ref, feats, idx, wts, out_dtype=out_dtype, warmup=1, iters=5)
+        csr = coo.to(feats.dtype).to_sparse_csr()
+        dense = feats.reshape(V * P, K)
+        lib_out = torch.sparse.mm(csr, dense)
+        lib_err = float((lib_out.float() - warp_tiles_ref(feats, idx, wts, out_dtype=torch.float32)).abs().max())
+        library_ms = cuda_ms(torch.sparse.mm, csr, dense, warmup=2, iters=10)
+        in_size, out_size = feats.element_size(), torch.empty((), dtype=out_dtype).element_size()
+        nbytes = rows * K * in_size + N * K * out_size + V * N * 4 * 8
+        flops = 2 * nnz * K
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[feats.dtype] * 1e3
+        entry = {
+            "name": name, "route": "cuda", "source": WARP_SRC, "replaces": replaces,
+            "launches": None,
+            "max_abs_err": errs[f"bf16->bf16 K={K}" if out_dtype == torch.bfloat16 else f"f32->f32 K={K}"],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        }
+        log(
+            f"[kernel] {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(sparse.mm)={library_ms:.4f} "
+            f"(library max_abs_err {lib_err:.3e}) bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}: "
+            f"{nbytes / 1e6:.1f} MB = {rows} source rows read once + out + LUT; {flops / 1e9:.2f} GFLOP "
+            f"over {nnz} live taps of {V * N * 4}) roofline_share={entry['bound_ms'] / ms:.3f}"
+        )
+        entries.append(entry)
+    return entries
+
+
+def serving_phase(dev, cfg_path=FLAGSHIP):
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.data.synthetic import make_ring_camera
+    from vsta_tpu_torch.ops.decode import decode_detections
+    from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.serving import build_serving_fn
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    cfg = load_config(str(cfg_path))
+    V, (H, W) = cfg.data.views, cfg.data.img_size
+    Hb, Wb = cfg.model.bev_size
+    P = math.ceil(H / 8) * math.ceil(W / 8)  # the stride-8 map of OUT_INDEX 2
+    t0 = time.perf_counter()
+    state = init_state_dict(cfg, seed=0)
+    serve = build_serving_fn(cfg, state, device="cuda")
+    log(f"[serve] model built: {sum(v.numel() for v in state.values())} weights, "
+        f"{time.perf_counter() - t0:.1f}s, compute dtype {serve.model.dtype}")
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (16, V, H, W, 3), dtype=np.uint8)
+    Ks, Rts = zip(*(make_ring_camera(v, V, img_hw=(H, W)) for v in range(V)))
+    K16 = np.broadcast_to(np.stack(Ks), (16, V, 3, 3)).astype(np.float32)
+    Rt16 = np.broadcast_to(np.stack(Rts), (16, V, 4, 4)).astype(np.float32)
+
+    def check_out(out, B):
+        D = cfg.eval.max_dets
+        for k, shape in (("boxes", (B, D, 4)), ("scores", (B, D)), ("valid", (B, D)), ("heatmap", (B, Hb, Wb, 1))):
+            check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)} != {shape}")
+        for k in ("boxes", "scores", "heatmap"):
+            check(bool(torch.isfinite(out[k]).all()), f"{k} not finite")
+        check(out["valid"].dtype == torch.bool, "valid dtype")
+
+    def run(serve_fn, B, warm, timed, label):
+        args = (frames[:B], K16[:B], Rt16[:B])
+        for _ in range(warm):
+            check_out(serve_fn(*args), B)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        for _ in range(timed):
+            t = time.perf_counter()
+            out = serve_fn(*args)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+            check_out(out, B)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = float(np.median(lat))
+        log(f"[serve] {label} B={B}: latency per request (host clock, uint8 frames in, synchronised) "
+            f"median={med * 1e3:.2f} ms all={[round(x * 1e3, 2) for x in lat]} -> {B / med:.1f} f/s; "
+            f"peak device memory {peak:.2f} GiB; valid dets/frame {float(out['valid'].float().sum(1).mean()):.1f}")
+        return out, warm + timed
+
+    launches = {}
+    # bf16 main path: batch 16 takes the resident dispatch (compute-dtype out)
+    check(warp_out_dtype(V, P, 16 * cfg.model.bev_proj_ch, torch.bfloat16) == torch.bfloat16, "dispatch")
+    warp_tiles.launches = 0
+    out16, n16 = run(serve, 16, 3, 5, "bf16")
+    _, n1 = run(serve, 1, 2, 5, "bf16")
+    launches["resident"] = warp_tiles.launches
+    log(f"[serve] bf16: {n16 + n1} requests, warp_tiles launches {warp_tiles.launches}")
+    check(warp_tiles.launches == n16 + n1, "warp kernel launches != requests on the bf16 path")
+
+    # f32 at batch 16: the windowed dispatch (f32 out)
+    cfg32 = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, use_amp=False))
+    check(warp_out_dtype(V, P, 16 * cfg.model.bev_proj_ch, torch.float32) == torch.float32, "dispatch")
+    serve32 = build_serving_fn(cfg32, state, device="cuda")
+    warp_tiles.launches = 0
+    _, n32 = run(serve32, 16, 1, 3, "f32")
+    launches["windowed"] = warp_tiles.launches
+    log(f"[serve] f32: {n32} requests, warp_tiles launches {warp_tiles.launches}")
+    check(warp_tiles.launches == n32, "warp kernel launches != requests on the f32 path")
+    del serve32
+
+    # where a request's time goes: each layer alone (CUDA events), then
+    # the device's busy share and top kernels over one request (profiler)
+    model = serve.model
+    x16 = torch.as_tensor(frames, device=dev)
+    k16 = torch.as_tensor(K16, device=dev)
+    rt16 = torch.as_tensor(Rt16, device=dev)
+    with torch.no_grad():
+        outs = model(x16, k16, rt16)
+        bev = outs["bev_feat"].to(model.dtype)
+        normed = (x16.float() - 127.5) / 64.0
+        kw = dict(bounds=cfg.model.bev_bounds, conf_thresh=cfg.eval.conf_thresh,
+                  nms_dist_m=cfg.eval.nms_dist_m, max_dets=cfg.eval.max_dets)
+        for B in (16, 1):
+            layers = {
+                "encoder": cuda_ms(model.encoder, normed[:B], warmup=2, iters=5),
+                "head": cuda_ms(model.detector, bev[:B], warmup=2, iters=5),
+                "decode": cuda_ms(decode_detections, outs["heatmap"][:B], outs["offset"][:B],
+                                  outs["size"][:B], warmup=2, iters=10, **kw),
+                "forward": cuda_ms(model, x16[:B], k16[:B], rt16[:B], warmup=1, iters=5),
+            }
+            log(f"[serve] layers B={B} (CUDA events, ms): " + json.dumps(layers))
+    profile_request(serve, (frames, K16, Rt16))
+
+    # the same bf16 requests with the warp swapped for its plain version:
+    # both accumulate in f32 and round once, so the heatmaps may differ by
+    # no more than 2 bf16 ulps of |ref|
+    for B in (16, 1):
+        args = (frames[:B], K16[:B], Rt16[:B])
+        before = warp_tiles.launches
+        serve.model.warp = warp_tiles_ref
+        ref = serve(*args)["heatmap"]
+        serve.model.warp = warp_tiles
+        check(warp_tiles.launches == before, "plain-version run launched the kernel")
+        got = serve(*args)["heatmap"]
+        diff = (got - ref).abs()
+        ok = bool((diff <= 2 * bf16_ulp(ref)).all())
+        log(f"[serve] bf16 B={B} heatmap, kernel vs plain warp: max_abs_diff={float(diff.max()):.3e} "
+            f"(<= 2 bf16 ulps of |ref|) {'ok' if ok else 'FAIL'}")
+        check(ok, f"bf16 heatmap at batch {B} with the kernel disagrees with the plain warp")
+    return launches
+
+
+def profile_request(serve_fn, args) -> None:
+    """Device busy share and the top kernels of one request (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    serve_fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        serve_fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # device-side events only (kernels, copies): a CPU op's device time
+    # repeats its kernels'
+    stats = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy_ms = sum(dev_us(e) for e in stats) / 1e3
+    if busy_ms == 0:
+        log("[profile] the profiler recorded no device time: busy share not measured")
+        return
+    top = sorted(stats, key=dev_us, reverse=True)[:10]
+    log(f"[profile] one B={len(args[0])} request: wall {wall_ms:.2f} ms (profiler on), device busy "
+        f"{busy_ms:.2f} ms = {busy_ms / wall_ms:.3f} of wall")
+    for e in top:
+        log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+
+
+def small_model_phase(dev):
+    """A small f32 model on the card against the same model on the CPU."""
+    from vsta_tpu_torch.config import from_dict
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.data.synthetic import make_ring_camera
+    from vsta_tpu_torch.serving import build_serving_fn
+
+    cfg = from_dict({
+        "DATA": {"IMG_SIZE": [3, 64, 96], "VIEWS": 3},
+        "MODEL": {"BACKBONE": "efficientnet_b0", "FEAT_DIM": 48, "BEV_SIZE": [32, 16, 48],
+                  "BEV_BOUNDS": [-12.0, 12.0, -4.0, 4.0], "BEV_PROJ_CH": 32,
+                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas"},
+        "RUNTIME": {"USE_AMP": False},
+    })
+    state = init_state_dict(cfg, seed=1)
+    rng = np.random.default_rng(1)
+    frames = rng.integers(0, 256, (2, 3, 64, 96, 3), dtype=np.uint8)
+    Ks, Rts = zip(*(make_ring_camera(v, 3, radius=10.0, height=4.0, img_hw=(64, 96)) for v in range(3)))
+    K = np.broadcast_to(np.stack(Ks), (2, 3, 3, 3)).astype(np.float32)
+    Rt = np.broadcast_to(np.stack(Rts), (2, 3, 4, 4)).astype(np.float32)
+    cpu = build_serving_fn(cfg, state, device="cpu")(frames, K, Rt)
+    gpu = build_serving_fn(cfg, state, device=dev)(frames, K, Rt)
+    d = float((gpu["heatmap"].cpu() - cpu["heatmap"]).abs().max())
+    log(f"[small] f32 heatmap, card vs CPU: max_abs_diff={d:.3e} (<= 1e-4; TF32 off)")
+    check(d <= 1e-4, "small f32 model on the card disagrees with the CPU")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    sys.path.insert(0, str(ROOT))
+    from vsta_tpu_torch import kernels
+
+    t_start = time.perf_counter()
+    line = smi()
+    dev = torch.device("cuda", 0)
+    log(f"[device] {line} | {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t = time.perf_counter()
+    text = kernels.build("warp_tiles")
+    log(f"[build] {time.perf_counter() - t:.1f}s")
+    for ln in text.splitlines():
+        if "registers" in ln or "spill" in ln:
+            log(f"[build] warp_tiles: {ln.strip()}")
+
+    t = time.perf_counter()
+    entries = kernel_phase(dev)
+    log(f"[kernel] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    launches = serving_phase(dev)
+    log(f"[serve] phase {time.perf_counter() - t:.1f}s")
+    small_model_phase(dev)
+    for entry, key in zip(entries, ("resident", "windowed")):
+        entry["launches"] = launches[key]
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
+    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": entries}))
+    print(line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

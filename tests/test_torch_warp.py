@@ -1,0 +1,175 @@
+"""vsta_tpu_torch warp: the plain version of the CUDA warp kernel against
+the TPU kernels (Pallas interpret mode on the CPU), and the shared-camera
+fused warp + projection against the JAX package. The kernel itself is
+held against the plain version on the card by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from vsta_tpu.geometry import bev_sample_coords, ground_grid
+from vsta_tpu.ops import warp_pallas as jwp
+from vsta_tpu.ops.warp import fused_warp_proj as j_fused
+from vsta_tpu.ops.warp import precompute_warp_lut as j_lut
+from vsta_tpu_torch.ops import warp_cuda
+from vsta_tpu_torch.ops.warp_cuda import (
+    fused_warp_proj_cuda,
+    warp_out_dtype,
+    warp_tiles,
+    warp_tiles_ref,
+)
+
+BOUNDS = (-12.0, 12.0, -6.0, 6.0)
+IMG, FEAT, BEV = (108, 192), (14, 24), (16, 32)
+N = BEV[0] * BEV[1]
+
+
+def _lut(cameras, V):
+    Ks, Rts = cameras
+    grid = ground_grid(BEV[0], BEV[1], BOUNDS)
+    coords = bev_sample_coords(jnp.asarray(Ks[:V]), jnp.asarray(Rts[:V]), IMG, FEAT, grid)
+    idx, wts = j_lut(coords.reshape(V, N, 2), FEAT)
+    return coords, np.array(idx), np.array(wts)
+
+
+def _ref(flat, idx, wts, out_dtype=torch.float32):
+    return warp_tiles_ref(
+        torch.from_numpy(flat), torch.from_numpy(idx), torch.from_numpy(wts), out_dtype=out_dtype
+    ).numpy()
+
+
+@pytest.mark.parametrize("K", [16, 21])
+@pytest.mark.parametrize("kernel", ["resident", "windowed"])
+def test_warp_tiles_ref_matches_pallas_kernels(rng, cameras, kernel, K):
+    """warp_tiles_ref == warp_tiles_resident (compute-dtype out) and
+    warp_tiles_windowed (f32 out), f32, for a K that is a multiple of 8
+    and one that is not."""
+    V = 7
+    _, idx, wts = _lut(cameras, V)
+    flat = rng.standard_normal((V, FEAT[0] * FEAT[1], K)).astype(np.float32)
+    fn = jwp.warp_tiles_resident if kernel == "resident" else jwp.warp_tiles_windowed
+    with pltpu.force_tpu_interpret_mode():
+        want = fn(jnp.asarray(flat), jnp.asarray(idx), jnp.asarray(wts), compute_dtype=jnp.float32)
+    assert want.dtype == jnp.float32
+    np.testing.assert_allclose(_ref(flat, idx, wts), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_warp_tiles_all_views_blind_is_exactly_zero(rng, cameras):
+    """Every tap masked: zero output whatever the (poisoned) source holds,
+    for the TPU kernels and the port alike."""
+    V = 7
+    _, idx, wts = _lut(cameras, V)
+    wts = wts * 0.0
+    poisoned = np.full((V, FEAT[0] * FEAT[1], 8), 1e6, np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        for fn in (jwp.warp_tiles_resident, jwp.warp_tiles_windowed):
+            out = fn(jnp.asarray(poisoned), jnp.asarray(idx), jnp.asarray(wts), compute_dtype=jnp.float32)
+            np.testing.assert_array_equal(np.asarray(out), 0.0)
+    np.testing.assert_array_equal(_ref(poisoned, idx, wts), 0.0)
+
+
+def test_warp_tiles_blind_view_ignores_its_source(rng, cameras):
+    V = 7
+    _, idx, wts = _lut(cameras, V)
+    wts[0] = 0.0
+    flat = rng.standard_normal((V, FEAT[0] * FEAT[1], 8)).astype(np.float32)
+    poisoned = flat.copy()
+    poisoned[0] = 1e6
+    np.testing.assert_array_equal(_ref(flat, idx, wts), _ref(poisoned, idx, wts))
+
+
+def test_warp_tiles_on_cpu_takes_the_plain_version(rng, cameras):
+    V = 3
+    _, idx, wts = _lut(cameras, V)
+    flat = torch.from_numpy(rng.standard_normal((V, FEAT[0] * FEAT[1], 8)).astype(np.float32))
+    before = warp_tiles.launches
+    out = warp_tiles(flat, torch.from_numpy(idx), torch.from_numpy(wts), out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (N, 8)
+    assert warp_tiles.launches == before  # no kernel on the CPU
+    want = warp_tiles_ref(flat, torch.from_numpy(idx), torch.from_numpy(wts), out_dtype=torch.bfloat16)
+    assert torch.equal(out, want)
+
+
+def test_warp_tiles_rejects_bad_inputs():
+    f = torch.zeros(2, 10, 8)
+    idx = torch.zeros(2, 5, 4, dtype=torch.int32)
+    wts = torch.zeros(2, 5, 4)
+    with pytest.raises(ValueError):
+        warp_tiles(f, idx[:1], wts[:1], out_dtype=torch.float32)
+    with pytest.raises(TypeError):
+        warp_tiles(f, idx.long(), wts, out_dtype=torch.float32)
+    with pytest.raises(TypeError):
+        warp_tiles(f.half(), idx, wts, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize(
+    "V,P,K,dtype",
+    [
+        (7, 34 * 60, 16 * 128, "bfloat16"),  # flagship AMP, batch 16: resident
+        (7, 34 * 60, 19 * 128, "bfloat16"),
+        (7, 34 * 60, 20 * 128, "bfloat16"),  # windowed
+        (7, 34 * 60, 16 * 128, "float32"),  # windowed
+        (7, 34 * 60, 1 * 128, "float32"),
+        (3, 96, 64, "float32"),
+    ],
+)
+def test_warp_out_dtype_follows_the_tpu_dispatch(V, P, K, dtype):
+    """The port stores the compute dtype exactly where the TPU dispatch
+    picks the resident kernel (warp_pallas.py:540-544) and f32 elsewhere."""
+    itemsize = jnp.dtype(dtype).itemsize
+    p_res = jwp._round_up(P, 8) + jwp.RWIN
+    resident = V * p_res * jwp._round_up(K, 128) * itemsize <= jwp.RESIDENT_BUDGET_BYTES
+    tdtype = getattr(torch, dtype)
+    assert warp_out_dtype(V, P, K, tdtype) == (tdtype if resident else torch.float32)
+
+
+@pytest.mark.parametrize("C,Cout", [(8, 16), (21, 6)])
+def test_fused_warp_proj_cuda_matches_pallas(rng, cameras, C, Cout):
+    """The shared-camera twin of _fwp_pallas_impl on CPU tensors against
+    fused_warp_proj_pallas(interpret=True), f32."""
+    B, V = 2, 7
+    coords, _, _ = _lut(cameras, V)
+    feats = rng.standard_normal((B, V, FEAT[0], FEAT[1], C)).astype(np.float32)
+    kernel = (rng.standard_normal((V, C, Cout)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((Cout,)) * 0.1).astype(np.float32)
+    want = jwp.fused_warp_proj_pallas(
+        jnp.asarray(feats), coords, jnp.asarray(kernel), jnp.asarray(bias),
+        compute_dtype=jnp.float32, interpret=True,
+    )
+    got = fused_warp_proj_cuda(
+        torch.from_numpy(feats), torch.from_numpy(np.array(coords)),
+        torch.from_numpy(kernel), torch.from_numpy(bias), torch.float32,
+    )
+    assert got.shape == (B, BEV[0], BEV[1], Cout) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C,Cout", [(8, 16), (21, 6)])
+def test_plain_fused_warp_proj_matches_jax(rng, cameras, C, Cout):
+    """fused_warp_proj_cuda on CPU tensors, the plain shared-camera fused
+    warp + projection, against the XLA one (which warps first when
+    C_out >= C and projects first otherwise), f32."""
+    B, V = 2, 5
+    coords, _, _ = _lut(cameras, V)
+    feats = rng.standard_normal((B, V, FEAT[0], FEAT[1], C)).astype(np.float32)
+    kernel = (rng.standard_normal((V, C, Cout)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((Cout,)) * 0.1).astype(np.float32)
+    want = j_fused(jnp.asarray(feats), coords, jnp.asarray(kernel), jnp.asarray(bias))
+    before = warp_tiles.launches
+    got = fused_warp_proj_cuda(
+        torch.from_numpy(feats), torch.from_numpy(np.array(coords)),
+        torch.from_numpy(kernel), torch.from_numpy(bias), torch.float32,
+    )
+    assert warp_tiles.launches == before  # the plain version on the CPU
+    assert got.shape == (B, BEV[0], BEV[1], Cout) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_fused_warp_proj_cuda_rejects_per_frame_cameras():
+    feats = torch.zeros(1, 2, 4, 4, 3)
+    with pytest.raises(NotImplementedError, match="Per-frame cameras"):
+        warp_cuda.fused_warp_proj_cuda(
+            feats, torch.zeros(1, 2, 3, 3, 2), torch.zeros(2, 3, 5), None, torch.float32
+        )

@@ -1,0 +1,112 @@
+"""Weights for the port: from a Flax ``BEVNet`` variables tree, or random.
+
+:func:`state_dict_from_flax` maps a nested dict of numpy arrays
+(``{'params': ..., 'batch_stats': ...}``, as ``BEVNet.init`` returns it,
+converted with ``np.asarray``) onto :class:`~vsta_tpu_torch.models.BEVNet`
+names:
+
+* conv kernels HWIO -> OIHW (a depthwise ``[k, k, 1, C]`` -> ``[C, 1, k, k]``);
+* BatchNorm ``scale``/``bias`` from params, ``mean``/``var`` from
+  batch_stats; GroupNorm ``scale``/``bias``;
+* ``view_proj`` [V, F, C_out] and ``view_proj_bias`` stay raw tensors.
+
+Flax names sub-modules by creation order (``Conv_0``, ``BatchNorm_1``,
+``SqueezeExcite_0``, ...); the walk below follows that order in ``MBConv``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .config import Config
+from .models.bevnet import BEVNet
+from .models.encoders.efficientnet import B0_STAGES
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(p: Mapping, out: StateDict, name: str) -> None:
+    out[f"{name}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _bn(p: Mapping, s: Mapping, out: StateDict, name: str) -> None:
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+    out[f"{name}.running_mean"] = _t(s["mean"])
+    out[f"{name}.running_var"] = _t(s["var"])
+    out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _mbconv(p: Mapping, s: Mapping, out: StateDict, name: str) -> None:
+    # Flax creation order: [expand conv, bn], dw conv, bn, SE, project conv, bn
+    convs = ["expand_conv", "dw_conv", "project_conv"] if "Conv_2" in p else ["dw_conv", "project_conv"]
+    bns = [c.replace("conv", "bn") for c in convs]
+    for i, (c, b) in enumerate(zip(convs, bns)):
+        _conv(p[f"Conv_{i}"], out, f"{name}.{c}")
+        _bn(p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"], out, f"{name}.{b}")
+    se = p["SqueezeExcite_0"]
+    _conv(se["Conv_0"], out, f"{name}.se.reduce")
+    _conv(se["Conv_1"], out, f"{name}.se.expand")
+
+
+def state_dict_from_flax(variables: Mapping) -> StateDict:
+    """Flax ``BEVNet`` variables (numpy leaves) -> the port's state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: StateDict = {}
+    enc, enc_s = params["encoder"], stats["encoder"]
+    bb, bb_s = enc["backbone"], enc_s["backbone"]
+    _conv(bb["stem_conv"], out, "encoder.backbone.stem_conv")
+    _bn(bb["stem_bn"], bb_s["stem_bn"], out, "encoder.backbone.stem_bn")
+    for si, (_, _, repeats, _, _) in enumerate(B0_STAGES):
+        for r in range(repeats):
+            key = f"stage{si}_block{r}"
+            _mbconv(bb[key], bb_s[key], out, f"encoder.backbone.stages.{si}.{r}")
+    proj = enc["proj"]
+    _conv(proj, out, "encoder.proj")
+    out["view_proj"] = _t(params["view_proj"])
+    out["view_proj_bias"] = _t(params["view_proj_bias"])
+    det = params["detector"]
+    for i in range(3):
+        _conv(det[f"stem{i}"], out, f"detector.stem{i}")
+        out[f"detector.gn{i}.weight"] = _t(det[f"GroupNorm_{i}"]["scale"])
+        out[f"detector.gn{i}.bias"] = _t(det[f"GroupNorm_{i}"]["bias"])
+    for head in ("heatmap_head", "offset_head", "size_head"):
+        _conv(det[head], out, f"detector.{head}")
+    return out
+
+
+def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:
+    """Random weights for ``BEVNet.from_config(cfg)`` from ``seed``.
+
+    Kernels are LeCun-normal truncated at 2 sigma (Flax's default init),
+    biases 0, norm scales 1, BatchNorm statistics (0, 1), with the head's
+    CenterNet constants. Built on the CPU.
+    """
+    g = torch.Generator().manual_seed(seed)
+    model = BEVNet.from_config(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name == "view_proj":  # [V, F, C_out]: fan-in V * F
+                fan_in = p.shape[0] * p.shape[1]
+            elif p.ndim == 4:  # OIHW
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            else:
+                p.fill_(1.0 if name.rsplit(".", 1)[-1] == "weight" else 0.0)
+                continue
+            std = 1.0 / (fan_in ** 0.5) / 0.87962566  # truncation-corrected
+            # standard normal truncated to [-2, 2] by its inverse CDF
+            lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+            u = lo + (1.0 - 2.0 * lo) * torch.rand(p.shape, generator=g, dtype=torch.float64)
+            p.copy_((torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0) * std).float())
+        model.detector.init_centernet_()
+    return model.state_dict()
