@@ -6,18 +6,31 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. device: the card's name and power limit; TF32 off for the f32 phases;
-2. build: the CUDA kernel from the source in this checkout (nvcc);
-3. kernel vs plain version at the flagship warp shapes (V=7, P=34*60,
-   N=120*360, K=16*128, LUT from ring cameras): each case's max error,
-   the kernel's time, its plain version's, the torch.sparse.mm
-   yardstick's and the least time the card could take;
-4. serving: configs/wildtrack.yaml at full width with random weights
+2. build: every CUDA kernel from the sources in this checkout (one nvcc a
+   source, all started together);
+3. warp kernel vs plain version at the flagship warp shapes (V=7,
+   P=34*60, N=120*360, K=16*128 serving and K=2*128 training, LUT from
+   ring cameras): each case's max error, the kernel's time, its plain
+   version's, the torch.sparse.mm yardstick's and the least time the card
+   could take;
+4. grouped sampler kernels vs plain versions at the flagship training
+   backward's shapes (G=7 maps of 35*61 padded rows, N=43,200 samples,
+   K=2*41): the same readings for sample_tiles_grouped and
+   scatter_tapdot_grouped;
+5. serving: configs/wildtrack.yaml at full width with random weights
    (bf16, batch 16 and 1, and f32 at batch 16, which takes the
    windowed dispatch), launch counts, latency, frames/s, peak memory;
    each layer's time (CUDA events) and one request under torch.profiler
    (device busy share, top kernels); the bf16 heatmaps at batch 16 and 1
    against the same requests with the warp swapped for its plain
-   version; a small f32 model on the card against the CPU.
+   version; a small f32 model on the card against the CPU;
+6. training: configs/wildtrack.yaml as it is (batch 2, ACCUM_STEPS 2,
+   bf16) for 10 train-step calls: time per call, frame sets/s, the
+   forward/backward/optimizer split, peak memory, launches of the three
+   kernels, parameters that move on every second call and BatchNorm
+   statistics on every call; one call's gradients with the kernels
+   against the same call on their plain versions; a small f32 train step
+   on the card against the CPU.
 
 Prints the kernels JSON line, the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -46,6 +59,11 @@ PEAK_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 WARP_TPU = "vsta_tpu/ops/warp_pallas.py"
 WARP_SRC = "vsta_tpu_torch/csrc/warp_tiles.cu"
 WARP_K = 16 * 128  # flagship batch 16 x BEV_PROJ_CH 128
+TRAIN_K = 2 * 128  # the training forward: batch 2 x BEV_PROJ_CH 128
+GROUPED_SRC = "vsta_tpu_torch/csrc/grouped_taps.cu"
+# the training backward's grouped sampler: 7 maps of the padded 35 x 61
+# stride-8 map, batch 2 x (40 + 1) raw channels
+GROUPED_G, GROUPED_HW, GROUPED_K = 7, (34, 60), 2 * 41
 
 
 def log(msg: str) -> None:
@@ -82,6 +100,27 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
+def hold(name: str, got: torch.Tensor, ref: torch.Tensor, rule: str) -> float:
+    """Check a kernel's output against its plain version by ``rule``; log
+    and return the max abs error."""
+    diff = (got.float() - ref.float()).abs()
+    if rule == "bf16":  # 1 bf16 ulp of |ref| (+1e-6 max|ref| where sums cancel)
+        tol = bf16_ulp(ref) + 1e-6 * ref.float().abs().max()
+        ok = bool((diff <= tol).all())
+        rule_s = "<= 1 bf16 ulp of |ref| + 1e-6*max|ref|"
+    elif rule == "zero":
+        ok = bool((got == 0).all())
+        rule_s = "exactly 0"
+    else:
+        tol = 1e-5 * float(ref.float().abs().max())
+        ok = float(diff.max()) <= tol
+        rule_s = f"<= 1e-5*max|ref| = {tol:.3e}"
+    err = float(diff.max())
+    log(f"[kernel] {name}: max_abs_err={err:.3e} ({rule_s}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"kernel case {name} disagrees with the plain version")
+    return err
+
+
 def kernel_phase(dev):
     from vsta_tpu_torch.ops.warp import precompute_warp_lut
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
@@ -101,22 +140,7 @@ def kernel_phase(dev):
         torch.cuda.synchronize()
         ref = warp_tiles_ref(feats, i, w, out_dtype=out_dtype)
         check(got.dtype == out_dtype and got.shape == ref.shape, f"{name}: shape/dtype")
-        diff = (got.float() - ref.float()).abs()
-        if rule == "bf16":  # 1 bf16 ulp of |ref| (+1e-6 max|ref| where sums cancel)
-            tol = bf16_ulp(ref) + 1e-6 * ref.float().abs().max()
-            ok = bool((diff <= tol).all())
-            rule_s = "<= 1 bf16 ulp of |ref| + 1e-6*max|ref|"
-        elif rule == "zero":
-            ok = bool((got == 0).all())
-            rule_s = "exactly 0"
-        else:
-            tol = 1e-5 * float(ref.float().abs().max())
-            ok = float(diff.max()) <= tol
-            rule_s = f"<= 1e-5*max|ref| = {tol:.3e}"
-        err = float(diff.max())
-        errs[name] = err
-        log(f"[kernel] {name}: max_abs_err={err:.3e} ({rule_s}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"kernel case {name} disagrees with the plain version")
+        errs[name] = hold(name, got, ref, rule)
 
     compare(f"bf16->bf16 K={K}", bf, idx, wts, torch.bfloat16, "bf16")
     compare(f"f32->f32 K={K}", f32, idx, wts, torch.float32, "f32")
@@ -136,6 +160,9 @@ def kernel_phase(dev):
     for Kr in (100, 13):
         compare(f"ragged K={Kr} bf16", bf[..., :Kr].contiguous(), idx, wts, torch.bfloat16, "bf16")
         compare(f"ragged K={Kr} f32", f32[..., :Kr].contiguous(), idx, wts, torch.float32, "f32")
+    # the training forward's shape: batch 2 x 128 channels, resident dispatch
+    bf_train = bf[..., :TRAIN_K].contiguous()
+    compare(f"bf16->bf16 K={TRAIN_K} (training forward)", bf_train, idx, wts, torch.bfloat16, "bf16")
 
     # timing at the main path's shapes
     nz = wts != 0
@@ -149,17 +176,19 @@ def kernel_phase(dev):
     for name, feats, out_dtype, replaces in (
         ("warp_tiles (resident dispatch: compute-dtype out)", bf, torch.bfloat16, f"{WARP_TPU}:162"),
         ("warp_tiles (windowed dispatch: f32 out)", f32, torch.float32, f"{WARP_TPU}:353"),
+        (f"warp_tiles K={TRAIN_K} (training forward, resident dispatch)", bf_train, torch.bfloat16, None),
     ):
+        Kf = feats.shape[-1]
         ms = cuda_ms(warp_tiles, feats, idx, wts, out_dtype=out_dtype, warmup=5, iters=50)
         plain_ms = cuda_ms(warp_tiles_ref, feats, idx, wts, out_dtype=out_dtype, warmup=1, iters=5)
         csr = coo.to(feats.dtype).to_sparse_csr()
-        dense = feats.reshape(V * P, K)
+        dense = feats.reshape(V * P, Kf)
         lib_out = torch.sparse.mm(csr, dense)
         lib_err = float((lib_out.float() - warp_tiles_ref(feats, idx, wts, out_dtype=torch.float32)).abs().max())
         library_ms = cuda_ms(torch.sparse.mm, csr, dense, warmup=2, iters=10)
         in_size, out_size = feats.element_size(), torch.empty((), dtype=out_dtype).element_size()
-        nbytes = rows * K * in_size + N * K * out_size + V * N * 4 * 8
-        flops = 2 * nnz * K
+        nbytes = rows * Kf * in_size + N * Kf * out_size + V * N * 4 * 8
+        flops = 2 * nnz * Kf
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[feats.dtype] * 1e3
         entry = {
             "name": name, "route": "cuda", "source": WARP_SRC, "replaces": replaces,
@@ -175,7 +204,118 @@ def kernel_phase(dev):
             f"{nbytes / 1e6:.1f} MB = {rows} source rows read once + out + LUT; {flops / 1e9:.2f} GFLOP "
             f"over {nnz} live taps of {V * N * 4}) roofline_share={entry['bound_ms'] / ms:.3f}"
         )
+        if replaces is not None:  # the K=256 shape is row 1's kernel again: logged, not a new entry
+            entries.append(entry)
+    return entries
+
+
+def grouped_phase(dev):
+    """The grouped sampler's two kernels against their plain versions at
+    the flagship training backward's shapes, and their times."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    G, (Hf, Wf), K = GROUPED_G, GROUPED_HW, GROUPED_K
+    P = (Hf + 1) * (Wf + 1)
+    coords = flagship_lut(dev)
+    N = coords.shape[1]
+    anchors, wts = anchored_taps(coords, (Hf, Wf))
+    idx = flat_taps(anchors, Wf + 1)
+    wts = wts.contiguous()
+    g = torch.Generator(device=dev).manual_seed(1)
+    maps32 = torch.randn((G, P, 128), generator=g, device=dev)
+    gout32 = torch.randn((G, N, 128), generator=g, device=dev)
+    errs = {}
+
+    def cases(name, maps, gout, i, w, rule):
+        maps, gout = maps.contiguous(), gout.contiguous()
+        out = gc.sample_tiles_grouped(maps, i, w)
+        dm, dw = gc.scatter_tapdot_grouped(maps, gout, i, w)
+        torch.cuda.synchronize()
+        ref_out = gc.sample_tiles_grouped_ref(maps, i, w)
+        ref_dm, ref_dw = gc.scatter_tapdot_grouped_ref(maps, gout, i, w)
+        check(out.dtype == maps.dtype and out.shape == ref_out.shape, f"{name}: sample shape/dtype")
+        check(dm.shape == ref_dm.shape and dw.shape == ref_dw.shape, f"{name}: scatter shapes")
+        errs[f"sample {name}"] = hold(f"sample_tiles_grouped {name}", out, ref_out, rule)
+        errs[f"dmaps {name}"] = hold(f"scatter_tapdot_grouped dmaps {name}", dm, ref_dm, "zero" if rule == "zero" else "f32")
+        errs[f"d_wts {name}"] = hold(f"scatter_tapdot_grouped d_wts {name}", dw, ref_dw, "f32")
+
+    bf = torch.bfloat16
+    cases(f"bf16 K={K}", maps32[..., :K].to(bf), gout32[..., :K].to(bf), idx, wts, "bf16")
+    cases(f"f32 K={K}", maps32[..., :K], gout32[..., :K], idx, wts, "f32")
+    cases("bf16 K=128", maps32.to(bf), gout32.to(bf), idx, wts, "bf16")
+    cases("ragged K=13 bf16", maps32[..., :13].to(bf), gout32[..., :13].to(bf), idx, wts, "bf16")
+    cases("ragged K=13 f32", maps32[..., :13], gout32[..., :13], idx, wts, "f32")
+    # every tap masked, the maps poisoned: sample and dmaps exactly 0, and
+    # d_wts still <maps[idx], gout> for every tap
+    cases(f"all taps weight 0, poisoned, bf16 K={K}", torch.full((G, P, K), 1e6, device=dev).to(bf),
+          gout32[..., :K].to(bf), idx, torch.zeros_like(wts), "zero")
+    bad = coords.clone()
+    bad[:, ::97, 0] = float("nan")
+    bad[:, 5::89, 1] = float("inf")
+    bad[:, 7::101] = -float("inf")
+    banchors, bwts = anchored_taps(bad, (Hf, Wf))
+    cases(f"non-finite coords f32 K={K}", maps32[..., :K], gout32[..., :K], flat_taps(banchors, Wf + 1),
+          bwts.contiguous(), "f32")
+
+    # timing at the main path's shapes (bf16, K = 82)
+    maps, gout = maps32[..., :K].to(bf).contiguous(), gout32[..., :K].to(bf).contiguous()
+    live = wts != 0
+    n_live, n_taps = int(live.sum()), wts.numel()
+    rows_g = torch.arange(G, device=dev)[:, None, None] * P + idx
+    rows_read = torch.unique(rows_g).numel()
+    offsets, _ = gc.inverse_taps(idx, P)
+    per_row = (offsets[1:] - offsets[:-1]).float()
+    # the sampler as a sparse [G*N, G*P] matrix (4 taps a row) and its transpose
+    row_of = torch.arange(G * N, device=dev)[:, None].expand(G * N, 4).reshape(-1)
+    coo = torch.sparse_coo_tensor(torch.stack([row_of, rows_g.reshape(-1)]), wts.reshape(-1), (G * N, G * P))
+    csr = coo.coalesce().to(bf).to_sparse_csr()
+    csr_t = coo.t().coalesce().to(bf).to_sparse_csr()
+    flat_maps, flat_gout = maps.reshape(G * P, K), gout.reshape(G * N, K)
+    entries = []
+    itemsize = maps.element_size()
+    for name, fn, args, plain, plain_args, lib in (
+        ("sample_tiles_grouped", gc.sample_tiles_grouped, (maps, idx, wts),
+         gc.sample_tiles_grouped_ref, (maps, idx, wts), (csr, flat_maps)),
+        ("scatter_tapdot_grouped", gc.scatter_tapdot_grouped, (maps, gout, idx, wts),
+         gc.scatter_tapdot_grouped_ref, (maps, gout, idx, wts), None),
+    ):
+        ms = cuda_ms(fn, *args, warmup=3, iters=20)
+        plain_ms = cuda_ms(plain, *plain_args, warmup=1, iters=5)
+        lut_bytes = G * N * 4 * 8  # idx + wts
+        if name == "sample_tiles_grouped":
+            nbytes = rows_read * K * itemsize + G * N * K * itemsize + lut_bytes
+            flops = 2 * n_live * K
+            library_ms = cuda_ms(torch.sparse.mm, *lib, warmup=2, iters=10)
+            lib_s = f"library_ms(sparse.mm, CSR of the taps)={library_ms:.4f}"
+            err = errs[f"sample bf16 K={K}"]
+        else:
+            nbytes = (rows_read * K * itemsize + G * N * K * itemsize + lut_bytes
+                      + G * P * K * 4 + G * N * 4 * 4)  # + dmaps f32 + d_wts f32
+            flops = 2 * n_live * K + 2 * n_taps * K
+            # no single library call gives both outputs: dmaps alone is a
+            # sparse product with the transposed CSR, d_wts has none
+            library_ms = None
+            dmaps_ms = cuda_ms(torch.sparse.mm, csr_t, flat_gout, warmup=2, iters=10)
+            lib_s = (f"library_ms=null (dmaps alone, sparse.mm with the transposed CSR: {dmaps_ms:.4f} ms; "
+                     f"d_wts has no single library call)")
+            err = max(errs[f"dmaps bf16 K={K}"], errs[f"d_wts bf16 K={K}"])
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[maps.dtype] * 1e3
+        entry = {
+            "name": name, "route": "cuda", "source": GROUPED_SRC,
+            "replaces": f"{WARP_TPU}:{955 if name == 'sample_tiles_grouped' else 1288}",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        }
+        log(f"[grouped] {name} bf16 K={K}: ms={ms:.4f} plain_ms={plain_ms:.4f} {lib_s} "
+            f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}: {nbytes / 1e6:.1f} MB = {rows_read} map rows "
+            f"read once + outputs + LUT; {flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}) "
+            f"roofline_share={entry['bound_ms'] / ms:.3f}")
         entries.append(entry)
+    log(f"[grouped] taps a source row: mean {float(per_row.mean()):.1f}, max {int(per_row.max())} "
+        f"(scatter_tapdot_grouped walks a row's taps in one warp)")
     return entries
 
 
@@ -294,15 +434,16 @@ def serving_phase(dev, cfg_path=FLAGSHIP):
     return launches
 
 
-def profile_request(serve_fn, args) -> None:
-    """Device busy share and the top kernels of one request (torch.profiler)."""
+def profile_request(fn, args, label=None) -> None:
+    """Device busy share and the top kernels of one call (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    serve_fn(*args)
+    label = label or f"one B={len(args[0])} request"
+    fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        serve_fn(*args)
+        fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     # device-side events only (kernels, copies): a CPU op's device time
@@ -318,10 +459,191 @@ def profile_request(serve_fn, args) -> None:
         log("[profile] the profiler recorded no device time: busy share not measured")
         return
     top = sorted(stats, key=dev_us, reverse=True)[:10]
-    log(f"[profile] one B={len(args[0])} request: wall {wall_ms:.2f} ms (profiler on), device busy "
+    log(f"[profile] {label}: wall {wall_ms:.2f} ms (profiler on), device busy "
         f"{busy_ms:.2f} ms = {busy_ms / wall_ms:.3f} of wall")
     for e in top:
         log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+
+
+def train_batch(cfg, B, seed):
+    """uint8 frames, ring cameras and about 12 boxes a frame inside the BEV
+    bounds, from a numpy seed."""
+    from vsta_tpu_torch.data.synthetic import make_ring_camera
+
+    rng = np.random.default_rng(seed)
+    V, (H, W) = cfg.data.views, cfg.data.img_size
+    x_min, x_max, y_min, y_max = cfg.model.bev_bounds
+    Ks, Rts = zip(*(make_ring_camera(v, V, img_hw=(H, W)) for v in range(V)))
+    boxes = np.zeros((B, cfg.loss.max_objects, 4), np.float32)
+    n = min(12, cfg.loss.max_objects)
+    boxes[:, :n, 0] = rng.uniform(x_min + 0.5, x_max - 0.5, (B, n))
+    boxes[:, :n, 1] = rng.uniform(y_min + 0.5, y_max - 0.5, (B, n))
+    boxes[:, :n, 2:] = rng.uniform(0.4, 0.8, (B, n, 2))
+    return {
+        "images": rng.integers(0, 256, (B, V, H, W, 3), dtype=np.uint8),
+        "K": np.broadcast_to(np.stack(Ks), (B, V, 3, 3)).astype(np.float32),
+        "Rt": np.broadcast_to(np.stack(Rts), (B, V, 4, 4)).astype(np.float32),
+        "boxes_world": boxes,
+        "num_boxes": np.full((B,), n, np.int32),
+    }
+
+
+def grad_distance(a, b):
+    """Per parameter, ||a - b|| / max(||b||, 1e-2 * the largest ||b||),
+    largest first, as (value, parameter) pairs. The floor keeps gradients
+    that are 0 up to rounding (a BatchNorm bias ahead of a 1x1 conv and
+    another BatchNorm) from dividing noise by noise."""
+    norms = {k: float(v.float().norm()) for k, v in b.items()}
+    floor = 1e-2 * max(norms.values())
+    return sorted(((float((a[k].float() - b[k].float()).norm()) / max(norms[k], floor), k) for k in b),
+                  reverse=True)
+
+
+def training_phase(dev, cfg_path=FLAGSHIP):
+    """The flagship training step on the card; returns each kernel's
+    launches on this path."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.training.state import (
+        apply_gradients, batch_to_device, create_state, gradients, loss_fn, make_train_step,
+    )
+
+    cfg = load_config(str(cfg_path))
+    B, V, (H, W) = cfg.data.batch_size, cfg.data.views, cfg.data.img_size
+    P = math.ceil(H / 8) * math.ceil(W / 8)
+    check(warp_out_dtype(V, P, B * cfg.model.bev_proj_ch, torch.bfloat16) == torch.bfloat16, "dispatch")
+    check(cfg.model.bev_proj_ch > 40 + 1, "the flagship takes the warp-first backward")
+    t0 = time.perf_counter()
+    state = create_state(cfg, seed=0, device="cuda", steps_per_epoch=100)
+    model = state.model
+    log(f"[train] state built: {time.perf_counter() - t0:.1f}s, batch {B}, ACCUM_STEPS {cfg.train.accum_steps}, "
+        f"compute dtype {model.dtype}, {sum(p.numel() for p in model.parameters())} parameters")
+    train_step = make_train_step(cfg)
+    batches = [train_batch(cfg, B, seed) for seed in range(4)]
+    watched = ["view_proj", "detector.stem0.weight", "encoder.backbone.stages.6.0.expand_conv.weight"]
+    stats = ["encoder.backbone.stem_bn.running_mean", "encoder.backbone.stages.6.0.project_bn.running_var"]
+
+    def snapshot(names):
+        sd = model.state_dict()
+        return {k: sd[k].clone() for k in names}
+
+    counters = (warp_tiles, gc.sample_tiles_grouped, gc.scatter_tapdot_grouped)
+    for c in counters:
+        c.launches = 0
+    warm, timed = 2, 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for i in range(warm + timed):
+        before, before_s = snapshot(watched), snapshot(stats)
+        t = time.perf_counter()
+        metrics = train_step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        if i >= warm:
+            lat.append(time.perf_counter() - t)
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"call {i}: non-finite {metrics}")
+        after, after_s = snapshot(watched), snapshot(stats)
+        moved = [not torch.equal(before[k], after[k]) for k in watched]
+        update = state.step % cfg.train.accum_steps == 0
+        check(all(moved) if update else not any(moved),
+              f"call {state.step}: parameters moved {moved}, expected {'all' if update else 'none'}")
+        check(all(not torch.equal(before_s[k], after_s[k]) for k in stats), f"call {state.step}: statistics still")
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(lat))
+    log(f"[train] {warm + timed} calls: per call (host clock, synchronised) median={med * 1e3:.2f} ms "
+        f"all={[round(x * 1e3, 2) for x in lat]} -> {B / med:.2f} frame sets/s; peak device memory {peak:.2f} GiB; "
+        f"last losses {json.dumps({k: round(float(v), 4) for k, v in metrics.items()})}")
+    log(f"[train] parameters moved on every {cfg.train.accum_steps}nd call only, BatchNorm statistics on every call; "
+        f"launches {json.dumps(launches)}")
+    for name, n in launches.items():
+        check(n == warm + timed, f"{name}: {n} launches in {warm + timed} train-step calls")
+
+    # where a call's time goes (CUDA events around its three parts)
+    split = {"forward+loss": [], "backward": [], "optimizer": []}
+    for i in range(4):
+        b = batch_to_device(batches[i], dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        losses = loss_fn(cfg, model, b)
+        ev[1].record()
+        grads = gradients(model, losses["total_loss"])
+        ev[2].record()
+        apply_gradients(state, grads)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for (k, v), a, z in zip(split.items(), ev[:-1], ev[1:]):
+            v.append(a.elapsed_time(z))
+    log("[train] split per call, CUDA events, median of 4 (ms): "
+        + json.dumps({k: round(float(np.median(v)), 3) for k, v in split.items()})
+        + " (the optimizer's time is an update on every second call)")
+    profile_request(train_step, (state, batches[0]), "one train-step call (an update call)")
+
+    # one call's gradients with the kernels, again with the kernels, and
+    # with all three on their plain versions (same weights, same batch)
+    b = batch_to_device(batches[0], dev)
+
+    def grads_with(warp, grouped):
+        model.warp, model.grouped = warp, grouped
+        try:
+            return gradients(model, loss_fn(cfg, model, b)["total_loss"])
+        finally:
+            model.warp, model.grouped = warp_tiles, gc.KERNELS
+
+    g_kernel = grads_with(warp_tiles, gc.KERNELS)
+    g_again = grads_with(warp_tiles, gc.KERNELS)
+    before = [c.launches for c in counters]
+    g_plain = grads_with(warp_tiles_ref, gc.PLAIN)
+    check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
+    spread = grad_distance(g_again, g_kernel)
+    dist = grad_distance(g_kernel, g_plain)
+    limit = 2e-2
+    worst = ", ".join(f"{d:.3e} ({k})" for d, k in dist[:3])
+    log(f"[train] gradients, kernels vs plain versions: per-parameter ||a-b|| / max(||b||, 1e-2 max||b||): "
+        f"worst {worst}; median {dist[len(dist) // 2][0]:.3e}; kernels run twice: worst {spread[0][0]:.3e}; "
+        f"limit {limit:.0e} (bf16: the plain scatter adds with atomics in another order, and dfeats is "
+        f"rounded to bf16)")
+    check(dist[0][0] <= limit, f"training gradients with the kernels disagree with the plain versions ({worst})")
+    return launches
+
+
+def small_train_phase(dev):
+    """One f32 train step of a small model on the card against the CPU."""
+    from vsta_tpu_torch.config import from_dict
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.training.state import create_state, make_train_step
+
+    cfg = from_dict({
+        "DATA": {"BATCH_SIZE": 2, "IMG_SIZE": [3, 64, 96], "VIEWS": 3},
+        "MODEL": {"BACKBONE": "efficientnet_b0", "FEAT_DIM": 48, "BEV_SIZE": [32, 16, 48],
+                  "BEV_BOUNDS": [-12.0, 12.0, -4.0, 4.0], "BEV_PROJ_CH": 48,
+                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas"},
+        "LOSS": {"MAX_OBJECTS": 16},
+        "RUNTIME": {"USE_AMP": False},
+    })
+    sd = init_state_dict(cfg, seed=1)
+    batch = train_batch(cfg, 2, seed=5)
+    out = {}
+    for where in ("cpu", dev):
+        state = create_state(cfg, sd, device=where, steps_per_epoch=10)
+        grads = {}
+        update = state.tx.update
+
+        def keep(opt_state, model, g, update=update, grads=grads):
+            grads.update({k: v.detach().cpu() for k, v in g.items()})
+            return update(opt_state, model, g)
+
+        state.tx.update = keep
+        metrics = make_train_step(cfg)(state, batch)
+        out[str(where)] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out[str(dev)]
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    dist, dist_k = grad_distance(g_gpu, g_cpu)[0]
+    log(f"[small] f32 train step, card vs CPU: losses and grad_norm max rel diff {loss_err:.3e} (<= 1e-4); "
+        f"gradients worst per-parameter ||a-b|| / max(||b||, 1e-2 max||b||) = {dist:.3e} ({dist_k}) "
+        f"(<= 5e-3; TF32 off)")
+    check(loss_err <= 1e-4 and dist <= 5e-3, "small f32 train step on the card disagrees with the CPU")
 
 
 def small_model_phase(dev):
@@ -366,22 +688,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    text = kernels.build("warp_tiles")
-    log(f"[build] {time.perf_counter() - t:.1f}s")
-    for ln in text.splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"[build] warp_tiles: {ln.strip()}")
+    names = sorted(p.stem for p in kernels.CSRC.glob("*.cu"))
+    texts = kernels.build(*names)
+    log(f"[build] {', '.join(names)}: {time.perf_counter() - t:.1f}s")
+    for name, text in texts.items():
+        for ln in text.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"[build] {name}: {ln.strip()}")
 
     t = time.perf_counter()
     entries = kernel_phase(dev)
-    log(f"[kernel] phase {time.perf_counter() - t:.1f}s")
+    entries += grouped_phase(dev)
+    log(f"[kernel] phases {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     launches = serving_phase(dev)
     log(f"[serve] phase {time.perf_counter() - t:.1f}s")
     small_model_phase(dev)
-    for entry, key in zip(entries, ("resident", "windowed")):
-        entry["launches"] = launches[key]
-        check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
+    t = time.perf_counter()
+    train_launches = training_phase(dev)
+    log(f"[train] phase {time.perf_counter() - t:.1f}s")
+    small_train_phase(dev)
+    # launches on the main paths, each counted from 0 over its own run:
+    # serving (both warp dispatches) and training (the resident dispatch
+    # and the grouped sampler's two kernels)
+    counts = [
+        launches["resident"] + train_launches["warp_tiles"],
+        launches["windowed"],
+        train_launches["sample_tiles_grouped"],
+        train_launches["scatter_tapdot_grouped"],
+    ]
+    for entry, n in zip(entries, counts):
+        entry["launches"] = n
+        check(n > 0, f"{entry['name']} was not launched on its path")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(line)

@@ -60,6 +60,7 @@ def test_port_imports_with_jax_blocked():
 def test_cuda_entry_point_raises_without_a_card(monkeypatch):
     from vsta_tpu_torch import config
     from vsta_tpu_torch.serving import build_serving_fn
+    from vsta_tpu_torch.training.state import create_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = config.from_dict({"MODEL": {"BACKBONE": "efficientnet_b0", "WARP_IMPL": "pallas"}})
@@ -67,3 +68,7 @@ def test_cuda_entry_point_raises_without_a_card(monkeypatch):
         build_serving_fn(cfg, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_serving_fn(cfg, {}, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_state(cfg, {}, steps_per_epoch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_state(cfg, device="cuda", steps_per_epoch=1)

@@ -67,6 +67,7 @@ def test_efficientnet_trunk_matches_flax(trunk_vars, hw):
     want = jax.jit(lambda v, x: m.apply(v, x, train=False))(v, jnp.asarray(x))
     trunk = EfficientNetFeatures()
     trunk.load_state_dict(_trunk_state(v["params"], v["batch_stats"]))
+    trunk.eval()  # running statistics, as train=False
     with torch.no_grad():
         got = trunk(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert len(got) == len(want) == 5
@@ -89,6 +90,7 @@ def test_view_encoder_matches_flax(fold):
     _conv(v["params"]["proj"], sd, "proj")
     enc = ViewEncoder(feat_dim=F, out_index=2, fold_proj=fold)
     enc.load_state_dict(sd)
+    enc.eval()
     with torch.no_grad():
         got = enc(torch.from_numpy(images))
     if fold:

@@ -10,6 +10,11 @@ names:
   batch_stats; GroupNorm ``scale``/``bias``;
 * ``view_proj`` [V, F, C_out] and ``view_proj_bias`` stay raw tensors.
 
+:func:`params_from_flax` maps a ``params`` tree alone (or a gradient tree,
+which has its shape) and :func:`batch_stats_from_flax` a ``batch_stats``
+tree alone, so that a test can hold the port's gradients, updated
+parameters and statistics to the JAX package's.
+
 Flax names sub-modules by creation order (``Conv_0``, ``BatchNorm_1``,
 ``SqueezeExcite_0``, ...); the walk below follows that order in ``MBConv``.
 """
@@ -17,7 +22,7 @@ Flax names sub-modules by creation order (``Conv_0``, ``BatchNorm_1``,
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,40 +44,46 @@ def _conv(p: Mapping, out: StateDict, name: str) -> None:
         out[f"{name}.bias"] = _t(p["bias"])
 
 
-def _bn(p: Mapping, s: Mapping, out: StateDict, name: str) -> None:
-    out[f"{name}.weight"] = _t(p["scale"])
-    out[f"{name}.bias"] = _t(p["bias"])
-    out[f"{name}.running_mean"] = _t(s["mean"])
-    out[f"{name}.running_var"] = _t(s["var"])
-    out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+def _bn(p: Optional[Mapping], s: Optional[Mapping], out: StateDict, name: str) -> None:
+    if p is not None:
+        out[f"{name}.weight"] = _t(p["scale"])
+        out[f"{name}.bias"] = _t(p["bias"])
+    if s is not None:
+        out[f"{name}.running_mean"] = _t(s["mean"])
+        out[f"{name}.running_var"] = _t(s["var"])
+        out[f"{name}.num_batches_tracked"] = torch.tensor(0)
 
 
-def _mbconv(p: Mapping, s: Mapping, out: StateDict, name: str) -> None:
+def _mbconv(p: Optional[Mapping], s: Optional[Mapping], out: StateDict, name: str) -> None:
     # Flax creation order: [expand conv, bn], dw conv, bn, SE, project conv, bn
-    convs = ["expand_conv", "dw_conv", "project_conv"] if "Conv_2" in p else ["dw_conv", "project_conv"]
+    expand = "Conv_2" in p if p is not None else "BatchNorm_2" in s
+    convs = ["expand_conv", "dw_conv", "project_conv"] if expand else ["dw_conv", "project_conv"]
     bns = [c.replace("conv", "bn") for c in convs]
     for i, (c, b) in enumerate(zip(convs, bns)):
-        _conv(p[f"Conv_{i}"], out, f"{name}.{c}")
-        _bn(p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"], out, f"{name}.{b}")
-    se = p["SqueezeExcite_0"]
-    _conv(se["Conv_0"], out, f"{name}.se.reduce")
-    _conv(se["Conv_1"], out, f"{name}.se.expand")
+        if p is not None:
+            _conv(p[f"Conv_{i}"], out, f"{name}.{c}")
+        _bn(p and p[f"BatchNorm_{i}"], s and s[f"BatchNorm_{i}"], out, f"{name}.{b}")
+    if p is not None:
+        se = p["SqueezeExcite_0"]
+        _conv(se["Conv_0"], out, f"{name}.se.reduce")
+        _conv(se["Conv_1"], out, f"{name}.se.expand")
 
 
-def state_dict_from_flax(variables: Mapping) -> StateDict:
-    """Flax ``BEVNet`` variables (numpy leaves) -> the port's state_dict."""
-    params, stats = variables["params"], variables["batch_stats"]
+def _from_flax(params: Optional[Mapping], stats: Optional[Mapping]) -> StateDict:
+    """The port's names for a params tree, a batch_stats tree, or both."""
     out: StateDict = {}
-    enc, enc_s = params["encoder"], stats["encoder"]
-    bb, bb_s = enc["backbone"], enc_s["backbone"]
-    _conv(bb["stem_conv"], out, "encoder.backbone.stem_conv")
-    _bn(bb["stem_bn"], bb_s["stem_bn"], out, "encoder.backbone.stem_bn")
+    bb = None if params is None else params["encoder"]["backbone"]
+    bb_s = None if stats is None else stats["encoder"]["backbone"]
+    if bb is not None:
+        _conv(bb["stem_conv"], out, "encoder.backbone.stem_conv")
+    _bn(bb and bb["stem_bn"], bb_s and bb_s["stem_bn"], out, "encoder.backbone.stem_bn")
     for si, (_, _, repeats, _, _) in enumerate(B0_STAGES):
         for r in range(repeats):
             key = f"stage{si}_block{r}"
-            _mbconv(bb[key], bb_s[key], out, f"encoder.backbone.stages.{si}.{r}")
-    proj = enc["proj"]
-    _conv(proj, out, "encoder.proj")
+            _mbconv(bb and bb[key], bb_s and bb_s[key], out, f"encoder.backbone.stages.{si}.{r}")
+    if params is None:
+        return out
+    _conv(params["encoder"]["proj"], out, "encoder.proj")
     out["view_proj"] = _t(params["view_proj"])
     out["view_proj_bias"] = _t(params["view_proj_bias"])
     det = params["detector"]
@@ -83,6 +94,22 @@ def state_dict_from_flax(variables: Mapping) -> StateDict:
     for head in ("heatmap_head", "offset_head", "size_head"):
         _conv(det[head], out, f"detector.{head}")
     return out
+
+
+def state_dict_from_flax(variables: Mapping) -> StateDict:
+    """Flax ``BEVNet`` variables (numpy leaves) -> the port's state_dict."""
+    return _from_flax(variables["params"], variables["batch_stats"])
+
+
+def params_from_flax(params: Mapping) -> StateDict:
+    """A Flax ``params`` tree, or a gradient tree of its shape -> the
+    port's parameter names (conv kernels transposed to OIHW)."""
+    return _from_flax(params, None)
+
+
+def batch_stats_from_flax(stats: Mapping) -> StateDict:
+    """A Flax ``batch_stats`` tree -> the port's BatchNorm buffer names."""
+    return _from_flax(None, stats)
 
 
 def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:

@@ -32,6 +32,12 @@
 //     repeated reads of a source row are served from L2.
 // Row offsets are 64-bit. A K that is not a multiple of 8 (or a pointer
 // not 16-byte aligned) takes the masked scalar path.
+//
+// Rounding: with bf16 feats each tap weight is rounded to bf16 before the
+// product, as the TPU kernels cast their one-hot weight matrix to the
+// compute dtype at the matmul; the product of two bf16 values is exact in
+// f32, the sum is f32 and the result is rounded once to the output dtype.
+// f32 feats keep f32 weights.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,6 +110,12 @@ __device__ __forceinline__ void store8(float* p, int valid, const float v[8]) {
   }
 }
 
+// a tap weight as it multiplies a Tin value (see "Rounding" above)
+__device__ __forceinline__ float tap_weight(float w, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+__device__ __forceinline__ float tap_weight(float w, const float*) { return w; }
+
 template <typename Tin, typename Tout, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 warp_tiles_kernel(const Tin* __restrict__ feats, const int* __restrict__ idx,
@@ -130,7 +142,7 @@ warp_tiles_kernel(const Tin* __restrict__ feats, const int* __restrict__ idx,
     // than read out of bounds
     if (id < 0 || id >= P) w = 0.f;
     s_idx[i] = id;
-    s_wts[i] = w;
+    s_wts[i] = tap_weight(w, feats);
   }
   __syncthreads();
 

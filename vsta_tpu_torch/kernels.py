@@ -41,23 +41,33 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already.
+def build(*names: str) -> Dict[str, str]:
+    """Compile each ``csrc/<name>.cu`` that is not built already, one
+    ``nvcc`` a source, all started together.
 
-    Returns the compiler output (ptxas register and spill report, empty
-    when the library was built already); raises if the build fails.
+    Returns each name's compiler output (ptxas register and spill report,
+    empty when the library was built already); raises if a build fails.
     """
-    lib = library_path(name)
-    if lib.exists():
-        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return proc.stdout
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
+    out = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        out[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{out[name]}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

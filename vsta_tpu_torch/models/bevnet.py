@@ -5,7 +5,10 @@ The port carries the JAX flagship path: ``FUSION: concat`` with
 ``WARP_IMPL: pallas`` and static cameras. The encoder's 1x1 projection is
 folded into the per-view projection (a ones channel carries its bias),
 and :func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj_cuda` runs the
-warp. Inputs and outputs are channels-last, as in the JAX package.
+warp; with autograd on, :class:`~vsta_tpu_torch.ops.warp_cuda.FusedWarpProj`
+runs it with its backward. Inputs and outputs are channels-last, as in the
+JAX package. ``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and
+cuts the gradient at its output.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from torch import nn
 from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..geometry import bev_sample_coords_with_depth, ground_grid
-from ..ops.warp_cuda import fused_warp_proj_cuda, warp_tiles
+from ..ops.grouped_cuda import KERNELS
+from ..ops.warp_cuda import FusedWarpProj, fused_warp_proj_cuda, warp_tiles
 from .encoders.encoder import ViewEncoder
 from .heads import BEVDetectorHead
 
@@ -60,10 +64,12 @@ class BEVNet(nn.Module):
         default_box_wh: Tuple[float, float] = (0.6, 0.6),
         head_mid1: int = 512,
         head_mid2: int = 128,
+        freeze_backbone: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.views, self.bev_size, self.bev_bounds = views, bev_size, bev_bounds
+        self.freeze_backbone = freeze_backbone
         self.dtype = dtype
         self.encoder = ViewEncoder(
             backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=True
@@ -74,8 +80,10 @@ class BEVNet(nn.Module):
             bev_proj_ch + POS_CH, bev_bounds, bev_size, default_box_wh,
             head_mid1, head_mid2, dtype,
         )
-        # the warp the model runs; a check may swap in warp_tiles_ref
+        # the kernels the model runs; a check may swap in warp_tiles_ref
+        # and grouped_cuda.PLAIN, their plain versions
         self.warp = warp_tiles
+        self.grouped = KERNELS
 
     @classmethod
     def from_config(cls, cfg: Config) -> "BEVNet":
@@ -101,8 +109,17 @@ class BEVNet(nn.Module):
             default_box_wh=cfg.loss.default_box_wh,
             head_mid1=m.head_mid1,
             head_mid2=m.head_mid2,
+            freeze_backbone=cfg.train.freeze_backbone,
             dtype=torch.bfloat16 if cfg.runtime.use_amp else torch.float32,
         )
+
+    def train(self, mode: bool = True) -> "BEVNet":
+        """A frozen backbone stays in eval mode: its BatchNorm uses and
+        keeps its running statistics."""
+        super().train(mode)
+        if self.freeze_backbone:
+            self.encoder.backbone.train(False)
+        return self
 
     def forward(self, images: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images [B, V, H, W, 3] uint8 or float; K [B, V, 3, 3]; Rt
@@ -119,6 +136,8 @@ class BEVNet(nn.Module):
             images = (images.float() - mean) * scale
 
         feats, enc_pk, enc_pb = self.encoder(images)
+        if self.freeze_backbone:
+            feats = feats.detach()
         _, _, Hf, Wf, _ = feats.shape
         grid = ground_grid(Hb, Wb, self.bev_bounds, device=dev)
         coords, _ = bev_sample_coords_with_depth(K[0], Rt[0], (H, W), (Hf, Wf), grid)
@@ -130,9 +149,14 @@ class BEVNet(nn.Module):
         kernel = torch.cat([composite, pre_bias[:, None, :]], dim=1)
         ones = torch.ones(feats.shape[:-1] + (1,), dtype=feats.dtype, device=dev)
         feats = torch.cat([feats, ones], dim=-1)
-        bev_main = fused_warp_proj_cuda(
-            feats, coords, kernel, self.view_proj_bias, self.dtype, warp=self.warp
-        )
+        if torch.is_grad_enabled():
+            bev_main = FusedWarpProj.apply(
+                feats, coords, kernel, self.view_proj_bias, self.dtype, self.warp, self.grouped
+            )
+        else:
+            bev_main = fused_warp_proj_cuda(
+                feats, coords, kernel, self.view_proj_bias, self.dtype, warp=self.warp
+            )
 
         pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
         pos = pos[None].expand(B, Hb, Wb, POS_CH).to(bev_main.dtype)

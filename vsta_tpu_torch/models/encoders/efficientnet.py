@@ -7,8 +7,9 @@ asymmetric on stride 2 (e.g. 270 -> 135 with a 3x3 pads (0, 1)), so it
 is applied with :func:`same_pad`, not ``Conv2d(padding=k // 2)``.
 
 Parameters are float32; every op runs in the module's compute dtype
-(weights cast at use, as Flax's ``dtype=`` does). BatchNorm uses the
-running statistics (inference only) with eps 1e-3.
+(weights cast at use, as Flax's ``dtype=`` does). BatchNorm has Flax's
+semantics, eps 1e-3: the running statistics in eval mode, the batch's in
+training mode.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ B0_STAGES: Sequence[Tuple[int, int, int, int, int]] = (
     (6, 320, 1, 1, 3),
 )
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 
 
 def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -43,16 +45,34 @@ def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm with f32 statistics and the input's dtype out."""
+    """Flax's BatchNorm: f32 statistics, the input's dtype out.
+
+    In eval mode it normalises with the running statistics. In training
+    mode it normalises with the batch's mean and *biased* variance,
+    ``max(E[x^2] - mean^2, 0)`` in f32 as flax's ``_compute_stats``, and
+    moves the running statistics by ``0.9 * running + 0.1 * batch``.
+    (``F.batch_norm(training=True)`` would store the unbiased variance.)
+    """
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-            False, 0.0, self.eps,
-        ).to(x.dtype)
+        if not self.training:
+            return F.batch_norm(
+                x.float(), self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
+            ).to(x.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def conv(x: torch.Tensor, c: nn.Conv2d, stride: int = 1) -> torch.Tensor:
@@ -104,7 +124,10 @@ class EfficientNetFeatures(nn.Module):
     """B0 trunk; ``forward(x, levels)`` returns pyramid levels 0..levels-1.
 
     The stages after the last requested level are built (so converted
-    checkpoints load whole) but not run.
+    checkpoints load whole). In eval mode they are not run. In training
+    mode they run without gradient, for their BatchNorm statistics only:
+    the JAX trunk runs all seven stages, so its train step moves those
+    statistics too.
     """
 
     def __init__(self, dtype: torch.dtype = torch.float32):
@@ -125,12 +148,16 @@ class EfficientNetFeatures(nn.Module):
         """x [N, 3, H, W] -> the first ``levels`` pyramid maps (NCHW)."""
         y = F.silu(self.stem_bn(conv(x.to(self.dtype), self.stem_conv, 2)))
         feats: List[torch.Tensor] = []
+        stats_only = False
         for (_, _, _, strides, _), blocks in zip(B0_STAGES, self.stages):
             if strides == 2:
                 feats.append(y)
                 if len(feats) == levels:
-                    return feats
-            for block in blocks:
-                y = block(y)
+                    if not self.training:
+                        return feats
+                    stats_only = True
+            with torch.set_grad_enabled(torch.is_grad_enabled() and not stats_only):
+                for block in blocks:
+                    y = block(y)
         feats.append(y)
         return feats[:levels]

@@ -57,20 +57,91 @@ def precompute_warp_lut(
     return idx.to(torch.int32), wts
 
 
+def tap_weights(wts: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The float32 tap weights as the kernels multiply them: rounded to
+    ``dtype`` first (the TPU kernels cast their one-hot weight matrix to
+    the compute dtype before the matmul), then widened to float32."""
+    return wts.to(dtype).to(torch.float32)
+
+
 def warp_lut_sum(
     feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor
 ) -> torch.Tensor:
     """``out[n, k] = sum_v sum_t wts[v,n,t] * feats[v, idx[v,n,t], k]`` in f32.
 
-    feats_vpk [V, P, K]; idx/wts [V, N, 4]. Returns [N, K] float32.
+    feats_vpk [V, P, K]; idx/wts [V, N, 4]. Returns [N, K] float32. Each
+    weight is rounded to the dtype of ``feats_vpk`` before the product
+    (:func:`tap_weights`); the sum is float32.
     """
     V, _, K = feats_vpk.shape
     N = idx.shape[1]
+    w = tap_weights(wts, feats_vpk.dtype)
     out = torch.zeros((N, K), dtype=torch.float32, device=feats_vpk.device)
     for v in range(V):
         fv = feats_vpk[v]
         for t in range(4):
             rows = fv.index_select(0, idx[v, :, t].long()).to(torch.float32)
-            out.addcmul_(wts[v, :, t, None], rows)
+            out.addcmul_(w[v, :, t, None], rows)
     return out
 
+
+# -- taps on the padded map (the training backward's sampler) -------------
+#
+# The forward warp builds its LUT on the unpadded Hf*Wf map
+# (precompute_warp_lut). The training backward reruns the warp through the
+# grouped sampler, whose taps are a 2x2 patch anchored in a map padded by
+# one zero row and column: (Hf+1)*(Wf+1) rows. Both equal grid_sample's
+# zeros padding; they differ in which row a masked tap points at.
+
+
+def anchored_taps(
+    coords: torch.Tensor, feat_hw: Tuple[int, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2x2-patch anchor and per-tap bilinear weights.
+
+    coords: (..., 2) float (x, y). Returns (anchor (..., 2) int32 as
+    (ya, xa) clamped in-image, weights (..., 4) float32), tap order
+    (ya,xa), (ya,xa+1), (ya+1,xa), (ya+1,xa+1). A tap's weight is the
+    bilinear hat max(0, 1 - |tap - coord|) per axis, so taps the clamp
+    moved off the true floor weigh 0, and taps on the zero pad row/column
+    read zeros. A non-finite coordinate is moved far outside the map, which
+    zeroes its weights.
+    """
+    Hf, Wf = feat_hw
+    x, y = coords[..., 0], coords[..., 1]
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    far = torch.tensor(-10.0, dtype=torch.float32, device=coords.device)
+    xs = torch.where(finite, x.float(), far)
+    ys = torch.where(finite, y.float(), far)
+    ya = torch.floor(ys).clamp(0, Hf - 1).to(torch.int32)
+    xa = torch.floor(xs).clamp(0, Wf - 1).to(torch.int32)
+
+    def tri(a, f):
+        return torch.clamp(1.0 - torch.abs(a.to(torch.float32) - f), min=0.0)
+
+    wy0, wy1 = tri(ya, ys), tri(ya + 1, ys)
+    wx0, wx1 = tri(xa, xs), tri(xa + 1, xs)
+    w = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], dim=-1)
+    return torch.stack([ya, xa], dim=-1), w
+
+
+def pad_feat_br(feat: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, C] -> [..., H+1, W+1, C], one zero row (bottom) and one
+    zero column (right)."""
+    return torch.nn.functional.pad(feat, (0, 0, 0, 1, 0, 1))
+
+
+def flat_taps(anchors: torch.Tensor, Wp: int) -> torch.Tensor:
+    """[G, N, 2] (ya, xa) anchors -> [G, N, 4] int32 flat taps into the
+    padded, Wp-wide row-major map, in :func:`anchored_taps`' tap order."""
+    p00 = anchors[..., 0] * Wp + anchors[..., 1]
+    return torch.stack([p00, p00 + 1, p00 + Wp, p00 + Wp + 1], dim=-1).to(torch.int32)
+
+
+def gather_taps(maps: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The 4 tap rows of every sample: maps [G, P, K], idx [G, N, 4] flat
+    taps in [0, P) -> [G, N, 4, K] in the dtype of ``maps``."""
+    G, P, K = maps.shape
+    base = torch.arange(G, device=maps.device, dtype=torch.int64)[:, None, None] * P
+    rows = (base + idx.long()).reshape(-1)
+    return maps.reshape(G * P, K).index_select(0, rows).reshape(idx.shape + (K,))

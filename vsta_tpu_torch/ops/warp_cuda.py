@@ -20,7 +20,8 @@ from typing import Callable, Optional
 import torch
 
 from .. import kernels
-from .warp import precompute_warp_lut, warp_lut_sum
+from .grouped_cuda import KERNELS, GroupedKernels, GroupedSample
+from .warp import anchored_taps, flat_taps, pad_feat_br, precompute_warp_lut, warp_lut_sum
 
 # the TPU dispatch between the two kernels (warp_pallas.py:537-544): the
 # VMEM-resident kernel, which stores the compute dtype, while the padded
@@ -163,3 +164,87 @@ def fused_warp_proj_cuda(
     if proj_bias is not None:
         out = out + proj_bias.to(out.dtype)
     return out.to(compute_dtype)
+
+
+def fused_warp_proj(
+    feats: torch.Tensor,
+    coords: torch.Tensor,
+    proj_kernel: torch.Tensor,
+    proj_bias: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+    *,
+    grouped: GroupedKernels = KERNELS,
+) -> torch.Tensor:
+    """Shared-camera warp + ConcatFusion + 1x1 projection, differentiable:
+    the twin of the XLA ``fused_warp_proj`` (``vsta_tpu/ops/warp.py``).
+
+    Same contract as :func:`fused_warp_proj_cuda`, but the warp is the
+    grouped sampler on the map padded by one zero row and column, with
+    :class:`~vsta_tpu_torch.ops.grouped_cuda.GroupedSample`'s fused
+    backward. Whichever side is narrower is warped: the projected
+    ``C_out`` channels when ``C_out < C``, else the raw ``C`` channels,
+    projected after the warp. ``grouped`` picks the kernels or their
+    plain versions.
+    """
+    B, V, Hf, Wf, C = feats.shape
+    C_out = proj_kernel.shape[-1]
+    if coords.ndim != 4:
+        raise NotImplementedError(
+            "per-frame cameras ([B, V, Hb, Wb, 2] coords) are ROADMAP Queue 1, "
+            "'Per-frame cameras'"
+        )
+    Hb, Wb = coords.shape[1], coords.shape[2]
+    N, Pp = Hb * Wb, (Hf + 1) * (Wf + 1)
+    anchors, wts = anchored_taps(coords.reshape(V, N, 2), (Hf, Wf))
+    idx = flat_taps(anchors, Wf + 1)
+    kernel = proj_kernel.to(compute_dtype)
+    if C_out < C:
+        # project first, warp C_out channels
+        proj = torch.einsum("bvhwc,vco->vhwbo", feats.to(compute_dtype), kernel)
+        fp = pad_feat_br(proj.reshape(V, Hf, Wf, B * C_out)).reshape(V, Pp, B * C_out)
+        warped = GroupedSample.apply(fp, idx, wts, grouped)
+        out = warped.sum(0).reshape(N, B, C_out)
+    else:
+        # warp the raw C channels, project after (per-view kernels summed)
+        fv = feats.to(compute_dtype).permute(1, 2, 3, 0, 4).reshape(V, Hf, Wf, B * C)
+        fp = pad_feat_br(fv).reshape(V, Pp, B * C)
+        warped = GroupedSample.apply(fp, idx, wts, grouped).reshape(V, N, B, C)
+        out = torch.einsum("vnbc,vco->nbo", warped, kernel)
+    out = out.permute(1, 0, 2).reshape(B, Hb, Wb, C_out)
+    if proj_bias is not None:
+        out = out + proj_bias.to(out.dtype)
+    return out
+
+
+class FusedWarpProj(torch.autograd.Function):
+    """:func:`fused_warp_proj_cuda` with a backward: the twin of
+    ``_fwp_pallas``.
+
+    ``apply(feats, coords, proj_kernel, proj_bias, compute_dtype, warp,
+    grouped)``. The forward launches ``warp`` (the warp kernel); the
+    backward is the VJP of :func:`fused_warp_proj` on the saved inputs
+    with ``grouped``'s sampler, as ``_fwp_pallas_bwd`` takes the VJP of
+    the XLA ``fused_warp_proj``. The coordinates get no gradient: they come
+    from the calibration, not from parameters.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, coords, proj_kernel, proj_bias, compute_dtype, warp, grouped):
+        ctx.save_for_backward(feats, coords, proj_kernel, proj_bias)
+        ctx.compute_dtype, ctx.grouped = compute_dtype, grouped
+        return fused_warp_proj_cuda(feats, coords, proj_kernel, proj_bias, compute_dtype, warp=warp)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, coords, proj_kernel, proj_bias = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [
+                None if t is None else t.detach().requires_grad_(n)
+                for t, n in ((feats, need[0]), (proj_kernel, need[2]), (proj_bias, need[3]))
+            ]
+            out = fused_warp_proj(*leaves[:1], coords, *leaves[1:], ctx.compute_dtype, grouped=ctx.grouped)
+            wanted = [t for t in leaves if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        df, dk, db = (next(grads) if t is not None and t.requires_grad else None for t in leaves)
+        return df, None, dk, db, None, None, None
