@@ -11,28 +11,45 @@ Phases, each of which raises on failure (exit code != 0):
 3. warp kernel vs plain version at the flagship warp shapes (V=7,
    P=34*60, N=120*360, K=16*128 serving and K=2*128 training, LUT from
    ring cameras): each case's max error, the kernel's time, its plain
-   version's, the torch.sparse.mm yardstick's and the least time the card
+   version's, the library yardstick's (torch.sparse.mm) and the least time the card
    could take;
-4. grouped sampler kernels vs plain versions at the flagship training
-   backward's shapes (G=7 maps of 35*61 padded rows, N=43,200 samples,
-   K=2*41): the same readings for sample_tiles_grouped and
-   scatter_tapdot_grouped;
+4. the grouped sampler's four kernels vs plain versions (sample_tiles_grouped,
+   scatter_tapdot_grouped, scatter_taps_grouped, taps_dot_grouped) at the
+   shapes the training paths give them: the calibrated warps' backward
+   (G=7 maps of 35*61 padded rows, N=43,200 samples, K=2*41 flagship and
+   2*64 deformable query) and the deformable fusion's sampler (G=56 and
+   448, N=10,800 at ATTN_STRIDE 4 and 172,800 at 1, K=32), with ragged K,
+   all-zero weights on poisoned maps and non-finite coordinates;
+   scatter_taps_grouped's dmaps bit-equal to the fused kernel's; the same
+   readings for each, and both routes of the backward that wants both
+   gradients (fused; the two one-sided kernels) timed at the sampler's
+   shapes;
 5. serving: configs/wildtrack.yaml at full width with random weights
    (bf16, batch 16 and 1, and f32 at batch 16, which takes the
    windowed dispatch), launch counts, latency, frames/s, peak memory;
    each layer's time (CUDA events) and one request under torch.profiler
    (device busy share, top kernels); the bf16 heatmaps at batch 16 and 1
    against the same requests with the warp swapped for its plain
-   version; a small f32 model on the card against the CPU;
+   version; then configs/wildtrack_deform.yaml the same way (bf16, batch
+   16 and 1; encoder / query warp / deformable fusion / head / decode;
+   two launches of sample_tiles_grouped a request; heatmaps with the
+   kernels against their plain versions); a small f32 model of each
+   family on the card against the CPU;
 6. training: configs/wildtrack.yaml as it is (batch 2, ACCUM_STEPS 2,
-   bf16) for 10 train-step calls: time per call, frame sets/s, the
-   forward/backward/optimizer split, peak memory, launches of the three
-   kernels, parameters that move on every second call and BatchNorm
-   statistics on every call; one call's gradients with the kernels
-   against the same call on their plain versions; a small f32 train step
-   on the card against the CPU.
+   bf16) for 8 train-step calls: time per call, frame sets/s, the
+   forward/backward/optimizer split, peak memory, launches a call
+   (warp_tiles, sample_tiles_grouped and scatter_taps_grouped once each),
+   parameters that move on every second call and BatchNorm statistics on
+   every call; one call's gradients with the kernels against the same
+   call on their plain versions, and against a backward forced through
+   the fused kernel; configs/wildtrack_deform.yaml the same way for 10
+   calls (sample_tiles_grouped twice, scatter_taps_grouped and
+   scatter_tapdot_grouped once each) and for 5 calls with ATTN_STRIDE 1
+   (scatter_taps_grouped twice, taps_dot_grouped once), the gradients of
+   the offsets and attention heads on a line of their own; a small f32
+   train step of each family on the card against the CPU.
 
-Prints the kernels JSON line, the nvidia-smi line, then as the last line
+Prints the kernels JSON line (six kernels), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
 and outside a checkout of the repository.
 """
@@ -52,6 +69,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "configs" / "wildtrack.yaml"
+DEFORM = ROOT / "configs" / "wildtrack_deform.yaml"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # peak operation rate by input type (H100 SXM data sheet, dense): bf16 on
 # the tensor cores, float32 outside them
@@ -64,6 +82,7 @@ GROUPED_SRC = "vsta_tpu_torch/csrc/grouped_taps.cu"
 # the training backward's grouped sampler: 7 maps of the padded 35 x 61
 # stride-8 map, batch 2 x (40 + 1) raw channels
 GROUPED_G, GROUPED_HW, GROUPED_K = 7, (34, 60), 2 * 41
+BEV_HW = (120, 360)
 
 
 def log(msg: str) -> None:
@@ -89,7 +108,7 @@ def flagship_lut(dev):
     Ks, Rts = zip(*(make_ring_camera(v, 7, img_hw=(270, 480)) for v in range(7)))
     K = torch.tensor(np.stack(Ks), dtype=torch.float32, device=dev)
     Rt = torch.tensor(np.stack(Rts), dtype=torch.float32, device=dev)
-    grid = ground_grid(120, 360, (-24.0, 24.0, -7.2, 7.2), device=dev)
+    grid = ground_grid(*BEV_HW, (-24.0, 24.0, -7.2, 7.2), device=dev)
     coords, _ = bev_sample_coords_with_depth(K, Rt, (270, 480), (34, 60), grid)
     return coords.reshape(7, -1, 2)
 
@@ -209,9 +228,41 @@ def kernel_phase(dev):
     return entries
 
 
+def deform_taps(dev, B, stride, seed=2):
+    """Taps of the deformable fusion's sampler at the flagship shapes: G =
+    B * 7 views * 4 heads groups, N = ceil(120 / stride) * ceil(360 /
+    stride) cells * 4 points. Locations are the cameras' reference points
+    plus the ring offsets plus noise of a pixel; the per-sample scale is a
+    softmax over (view, point) in which the views that do not see the cell
+    weigh exactly 0, as in the model."""
+    from vsta_tpu_torch.models.fusion import ring_offsets
+    from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps
+
+    V, M, Pts, (Hf, Wf) = 7, 4, 4, GROUPED_HW
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = flagship_lut(dev).reshape(V, *BEV_HW, 2)[:, ::stride, ::stride]  # [V, Hq, Wq, 2]
+    Hq, Wq = base.shape[1:3]
+    ring = ring_offsets(M, Pts).to(dev)  # [M, Pts, 2]
+    noise = torch.randn((B, V, M, Hq, Wq, Pts, 2), generator=g, device=dev)
+    loc = base[None, :, None, :, :, None, :] + ring[None, None, :, None, None, :, :] + noise
+    finite = torch.isfinite(base).all(-1)
+    valid = finite & (base[..., 0] >= -1) & (base[..., 0] <= Wf) & (base[..., 1] >= -1) & (base[..., 1] <= Hf)
+    logits = torch.randn((B, Hq, Wq, M, V, Pts), generator=g, device=dev)
+    logits = torch.where(valid.permute(1, 2, 0)[None, :, :, None, :, None], logits, torch.full_like(logits, -1e9))
+    attn = torch.softmax(logits.reshape(B, Hq, Wq, M, V * Pts), -1).reshape(B, Hq, Wq, M, V, Pts)
+    scale = attn.permute(0, 4, 3, 1, 2, 5).to(torch.bfloat16).float()  # [B, V, M, Hq, Wq, Pts]
+    G, N = B * V * M, Hq * Wq * Pts
+    anchors, wts = anchored_taps(loc.reshape(G, N, 2), (Hf, Wf))
+    wts = (wts * scale.reshape(G, N, 1)).contiguous()
+    return flat_taps(anchors, Wf + 1), wts
+
+
 def grouped_phase(dev):
-    """The grouped sampler's two kernels against their plain versions at
-    the flagship training backward's shapes, and their times."""
+    """The grouped sampler's four kernels against their plain versions at
+    the shapes the training paths give them, and their times: the
+    calibrated warps' backward (G = 7 maps, N = 43,200, K = 82 flagship
+    and 128 deformable query) and the deformable fusion's sampler (G = 56
+    and 448, N = 10,800 at ATTN_STRIDE 4 and 172,800 at 1, K = 32)."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps
     from vsta_tpu_torch.utils.timing import cuda_ms
@@ -223,28 +274,42 @@ def grouped_phase(dev):
     anchors, wts = anchored_taps(coords, (Hf, Wf))
     idx = flat_taps(anchors, Wf + 1)
     wts = wts.contiguous()
-    g = torch.Generator(device=dev).manual_seed(1)
-    maps32 = torch.randn((G, P, 128), generator=g, device=dev)
-    gout32 = torch.randn((G, N, 128), generator=g, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    maps32 = torch.randn((G, P, 128), generator=gen, device=dev)
+    gout32 = torch.randn((G, N, 128), generator=gen, device=dev)
     errs = {}
+    bf = torch.bfloat16
 
     def cases(name, maps, gout, i, w, rule):
+        """All four kernels on one set of inputs against their plain
+        versions; scatter_taps_grouped's dmaps against the fused kernel's
+        bit for bit."""
         maps, gout = maps.contiguous(), gout.contiguous()
         out = gc.sample_tiles_grouped(maps, i, w)
         dm, dw = gc.scatter_tapdot_grouped(maps, gout, i, w)
+        dm3 = gc.scatter_taps_grouped(gout, i, w, maps.shape[1])
+        dw5 = gc.taps_dot_grouped(maps, gout, i)
         torch.cuda.synchronize()
         ref_out = gc.sample_tiles_grouped_ref(maps, i, w)
-        ref_dm, ref_dw = gc.scatter_tapdot_grouped_ref(maps, gout, i, w)
+        ref_dm = gc.scatter_taps_grouped_ref(gout, i, w, maps.shape[1])
+        ref_dw = gc.taps_dot_grouped_ref(maps, gout, i)
         check(out.dtype == maps.dtype and out.shape == ref_out.shape, f"{name}: sample shape/dtype")
-        check(dm.shape == ref_dm.shape and dw.shape == ref_dw.shape, f"{name}: scatter shapes")
+        check(dm.shape == dm3.shape == ref_dm.shape and dw.shape == dw5.shape == ref_dw.shape, f"{name}: shapes")
+        check(dm3.dtype == dw5.dtype == torch.float32, f"{name}: gradient dtypes")
+        dm_rule = "zero" if rule == "zero" else "f32"
         errs[f"sample {name}"] = hold(f"sample_tiles_grouped {name}", out, ref_out, rule)
-        errs[f"dmaps {name}"] = hold(f"scatter_tapdot_grouped dmaps {name}", dm, ref_dm, "zero" if rule == "zero" else "f32")
+        errs[f"dmaps {name}"] = hold(f"scatter_tapdot_grouped dmaps {name}", dm, ref_dm, dm_rule)
         errs[f"d_wts {name}"] = hold(f"scatter_tapdot_grouped d_wts {name}", dw, ref_dw, "f32")
+        errs[f"dmaps3 {name}"] = hold(f"scatter_taps_grouped {name}", dm3, ref_dm, dm_rule)
+        errs[f"d_wts5 {name}"] = hold(f"taps_dot_grouped {name}", dw5, ref_dw, "f32")
+        same = torch.equal(dm3, dm)
+        log(f"[kernel] scatter_taps_grouped {name}: dmaps bit-equal to scatter_tapdot_grouped's: {same}")
+        check(same, f"{name}: scatter_taps_grouped's dmaps differ from the fused kernel's")
 
-    bf = torch.bfloat16
     cases(f"bf16 K={K}", maps32[..., :K].to(bf), gout32[..., :K].to(bf), idx, wts, "bf16")
     cases(f"f32 K={K}", maps32[..., :K], gout32[..., :K], idx, wts, "f32")
     cases("bf16 K=128", maps32.to(bf), gout32.to(bf), idx, wts, "bf16")
+    cases("f32 K=128", maps32, gout32, idx, wts, "f32")
     cases("ragged K=13 bf16", maps32[..., :13].to(bf), gout32[..., :13].to(bf), idx, wts, "bf16")
     cases("ragged K=13 f32", maps32[..., :13], gout32[..., :13], idx, wts, "f32")
     # every tap masked, the maps poisoned: sample and dmaps exactly 0, and
@@ -259,70 +324,308 @@ def grouped_phase(dev):
     cases(f"non-finite coords f32 K={K}", maps32[..., :K], gout32[..., :K], flat_taps(banchors, Wf + 1),
           bwts.contiguous(), "f32")
 
-    # timing at the main path's shapes (bf16, K = 82)
-    maps, gout = maps32[..., :K].to(bf).contiguous(), gout32[..., :K].to(bf).contiguous()
-    live = wts != 0
-    n_live, n_taps = int(live.sum()), wts.numel()
-    rows_g = torch.arange(G, device=dev)[:, None, None] * P + idx
-    rows_read = torch.unique(rows_g).numel()
+    # the deformable sampler's shapes: B = 2 and 16 at ATTN_STRIDE 4, B = 2 at 1
+    deform = {}
+    for label, B, stride in (("G=56 N=10800", 2, 4), ("G=448 N=10800", 16, 4), ("G=56 N=172800", 2, 1)):
+        d_idx, d_wts = deform_taps(dev, B, stride)
+        Gd, Nd = d_idx.shape[:2]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        d_maps = torch.randn((Gd, P, 32), generator=gen, device=dev)
+        d_gout = torch.randn((Gd, Nd, 32), generator=gen, device=dev)
+        cases(f"deform {label} K=32 bf16", d_maps.to(bf), d_gout.to(bf), d_idx, d_wts, "bf16")
+        if B == 2:
+            cases(f"deform {label} K=32 f32", d_maps, d_gout, d_idx, d_wts, "f32")
+        deform[label] = (d_maps.to(bf), d_gout.to(bf), d_idx, d_wts)
+        del d_maps, d_gout
+
+    def measure(kind, maps, gout, i, w, err_key, library=True):
+        """One kernel at one shape (bf16): its time, the plain version's,
+        the library yardstick's and the bound from these inputs."""
+        Gm, Pm, Km = maps.shape
+        Nm = i.shape[1]
+        itemsize = maps.element_size()
+        live = w != 0
+        n_live, n_taps = int(live.sum()), w.numel()
+        rows_g = torch.arange(Gm, device=dev)[:, None, None] * Pm + i
+        rows_read = torch.unique(rows_g).numel()
+        idx_bytes, wts_bytes = Gm * Nm * 4 * 4, Gm * Nm * 4 * 4
+        map_bytes, gout_bytes = rows_read * Km * itemsize, Gm * Nm * Km * itemsize
+        fn, plain, args = {
+            "sample_tiles_grouped": (gc.sample_tiles_grouped, gc.sample_tiles_grouped_ref, (maps, i, w)),
+            "scatter_tapdot_grouped": (gc.scatter_tapdot_grouped, gc.scatter_tapdot_grouped_ref, (maps, gout, i, w)),
+            "scatter_taps_grouped": (gc.scatter_taps_grouped, gc.scatter_taps_grouped_ref, (gout, i, w, Pm)),
+            "taps_dot_grouped": (gc.taps_dot_grouped, gc.taps_dot_grouped_ref, (maps, gout, i)),
+        }[kind]
+        ms = cuda_ms(fn, *args, warmup=2, iters=10)
+        plain_ms = cuda_ms(plain, *args, warmup=1, iters=3)
+        library_ms, lib_s, more = None, "library_ms=null", {}
+
+        def taps_matrix():
+            """The sampler as a sparse [G*N, G*P] matrix (4 taps a row)."""
+            row_of = torch.arange(Gm * Nm, device=dev)[:, None].expand(Gm * Nm, 4).reshape(-1)
+            at = torch.stack([row_of, rows_g.reshape(-1)])
+            return torch.sparse_coo_tensor(at, w.reshape(-1), (Gm * Nm, Gm * Pm))
+
+        if kind == "sample_tiles_grouped":
+            nbytes = map_bytes + gout_bytes + idx_bytes + wts_bytes  # out has gout's size
+            flops = 2 * n_live * Km
+            if library:
+                csr = taps_matrix().coalesce().to(maps.dtype).to_sparse_csr()
+                library_ms = cuda_ms(torch.sparse.mm, csr, maps.reshape(Gm * Pm, Km), warmup=1, iters=5)
+                lib_s = f"library_ms(sparse.mm, CSR of the taps)={library_ms:.4f}"
+        elif kind == "scatter_taps_grouped":
+            nbytes = gout_bytes + idx_bytes + wts_bytes + Gm * Pm * Km * 4
+            flops = 2 * n_live * Km
+            if library:
+                csr_t = taps_matrix().t().coalesce().to(gout.dtype).to_sparse_csr()
+                library_ms = cuda_ms(torch.sparse.mm, csr_t, gout.reshape(Gm * Nm, Km), warmup=1, iters=5)
+                lib_s = f"library_ms(sparse.mm, transposed CSR of the taps)={library_ms:.4f}"
+        elif kind == "taps_dot_grouped":
+            nbytes = map_bytes + gout_bytes + idx_bytes + Gm * Nm * 4 * 4  # it reads no weights
+            flops = 2 * n_taps * Km
+            if library:
+                # torch.sparse.sampled_addmm, (gout @ maps^T) sampled at the
+                # taps' CSR pattern, is the same function. On CUDA it takes
+                # float32, not bfloat16, so it runs on float32 copies of these
+                # inputs, beside the kernel's own time on the same copies.
+                # The padded anchored taps of a sample are four distinct
+                # rows in increasing order, so idx is the pattern's columns
+                # and the values come back in tap order.
+                check(bool((i[..., 1:] > i[..., :-1]).all()), f"{kind}: a sample's taps are not distinct and increasing")
+                maps_f, gout_f = maps.float(), gout.float()
+                crow = torch.arange(Gm * Nm + 1, device=dev, dtype=torch.int32) * 4
+                pattern = torch.sparse_csr_tensor(
+                    crow, rows_g.reshape(-1).int(), torch.zeros(n_taps, device=dev), (Gm * Nm, Gm * Pm),
+                    check_invariants=False)
+                dense = (pattern, gout_f.reshape(Gm * Nm, Km), maps_f.reshape(Gm * Pm, Km).t())
+                got = torch.sparse.sampled_addmm(*dense, beta=0.0).values().reshape(Gm, Nm, 4)
+                hold(f"sampled_addmm vs taps_dot_grouped_ref {Gm}x{Nm}x{Km} f32", got, plain(maps_f, gout_f, i), "f32")
+                del got
+                library_ms = cuda_ms(torch.sparse.sampled_addmm, *dense, beta=0.0, warmup=1, iters=5)
+                more = {"library_dtype": "float32", "ms_float32": cuda_ms(fn, maps_f, gout_f, i, warmup=2, iters=10)}
+                lib_s = (f"library_ms(sparse.sampled_addmm on the taps' CSR pattern, float32: bfloat16 is not "
+                         f"implemented)={library_ms:.4f} beside the kernel's float32 ms={more['ms_float32']:.4f}")
+                del maps_f, gout_f, pattern, dense
+        else:
+            nbytes = map_bytes + gout_bytes + idx_bytes + wts_bytes + Gm * Pm * Km * 4 + Gm * Nm * 4 * 4
+            flops = 2 * n_live * Km + 2 * n_taps * Km
+            lib_s = "library_ms=null (no one call gives dmaps and d_wts)"
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[maps.dtype] * 1e3
+        shape = f"G={Gm} P={Pm} N={Nm} K={Km} {str(maps.dtype).split('.')[-1]}"
+        reading = {
+            "shape": shape, "max_abs_err": errs[err_key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, **more,
+        }
+        log(f"[grouped] {kind} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} {lib_s} "
+            f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}: {nbytes / 1e6:.1f} MB; "
+            f"{flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}, {rows_read} map rows touched) "
+            f"roofline_share={reading['bound_ms'] / ms:.3f}")
+        return reading
+
+    flag = (maps32[..., :K].to(bf).contiguous(), gout32[..., :K].to(bf).contiguous(), idx, wts)
+    query = (maps32.to(bf).contiguous(), gout32.to(bf).contiguous(), idx, wts)
+    s4, s4b16, s1 = deform["G=56 N=10800"], deform["G=448 N=10800"], deform["G=56 N=172800"]
+    # each kernel's entry is at a shape its main path gives it; the others follow
+    plan = (
+        ("scatter_taps_grouped", 686, [
+            (query, "dmaps3 bf16 K=128", True), (flag, f"dmaps3 bf16 K={K}", True),
+            (s1, "dmaps3 deform G=56 N=172800 K=32 bf16", True), (s4, "dmaps3 deform G=56 N=10800 K=32 bf16", False)]),
+        ("sample_tiles_grouped", 955, [
+            (flag, f"sample bf16 K={K}", True), (query, "sample bf16 K=128", False),
+            (s4, "sample deform G=56 N=10800 K=32 bf16", True), (s4b16, "sample deform G=448 N=10800 K=32 bf16", False),
+            (s1, "sample deform G=56 N=172800 K=32 bf16", False)]),
+        ("taps_dot_grouped", 1125, [
+            (s1, "d_wts5 deform G=56 N=172800 K=32 bf16", True), (s4, "d_wts5 deform G=56 N=10800 K=32 bf16", True),
+            (query, "d_wts5 bf16 K=128", True)]),
+        ("scatter_tapdot_grouped", 1288, [
+            (s4, "dmaps deform G=56 N=10800 K=32 bf16", False), (s4b16, "dmaps deform G=448 N=10800 K=32 bf16", False),
+            (s1, "dmaps deform G=56 N=172800 K=32 bf16", False), (flag, f"dmaps bf16 K={K}", False)]),
+    )
+    entries = []
+    for kind, line, shapes in plan:
+        readings = [measure(kind, *inputs, key, library=lib) for inputs, key, lib in shapes]
+        first = dict(readings[0])
+        entries.append({
+            "name": kind, "route": "cuda", "source": GROUPED_SRC, "replaces": f"{WARP_TPU}:{line}",
+            "launches": None, **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": first["shape"], "other_shapes": readings[1:],
+        })
+
+    # the two routes of the backward that wants both gradients, at the
+    # deformable sampler's shapes (the reference takes the fused kernel at
+    # ATTN_STRIDE 4 and the two one-sided kernels at 1)
+    def split_route(maps, gout, i, w):
+        return gc.scatter_taps_grouped(gout, i, w, maps.shape[1]), gc.taps_dot_grouped(maps, gout, i)
+
+    for label, inputs in (("ATTN_STRIDE 4 (G=56 N=10800 K=32)", s4), ("ATTN_STRIDE 1 (G=56 N=172800 K=32)", s1)):
+        fits = gc.fused_backward_fits(P, inputs[2].shape[1], 32, bf)
+        fused_ms = cuda_ms(gc.scatter_tapdot_grouped, *inputs, warmup=2, iters=10)
+        split_ms = cuda_ms(split_route, *inputs, warmup=2, iters=10)
+        log(f"[grouped] backward routes at {label}, bf16: fused scatter_tapdot_grouped {fused_ms:.4f} ms; "
+            f"scatter_taps_grouped + taps_dot_grouped {split_ms:.4f} ms; the dispatch takes "
+            f"{'the fused kernel' if fits else 'the two one-sided kernels'}")
     offsets, _ = gc.inverse_taps(idx, P)
     per_row = (offsets[1:] - offsets[:-1]).float()
-    # the sampler as a sparse [G*N, G*P] matrix (4 taps a row) and its transpose
-    row_of = torch.arange(G * N, device=dev)[:, None].expand(G * N, 4).reshape(-1)
-    coo = torch.sparse_coo_tensor(torch.stack([row_of, rows_g.reshape(-1)]), wts.reshape(-1), (G * N, G * P))
-    csr = coo.coalesce().to(bf).to_sparse_csr()
-    csr_t = coo.t().coalesce().to(bf).to_sparse_csr()
-    flat_maps, flat_gout = maps.reshape(G * P, K), gout.reshape(G * N, K)
-    entries = []
-    itemsize = maps.element_size()
-    for name, fn, args, plain, plain_args, lib in (
-        ("sample_tiles_grouped", gc.sample_tiles_grouped, (maps, idx, wts),
-         gc.sample_tiles_grouped_ref, (maps, idx, wts), (csr, flat_maps)),
-        ("scatter_tapdot_grouped", gc.scatter_tapdot_grouped, (maps, gout, idx, wts),
-         gc.scatter_tapdot_grouped_ref, (maps, gout, idx, wts), None),
-    ):
-        ms = cuda_ms(fn, *args, warmup=3, iters=20)
-        plain_ms = cuda_ms(plain, *plain_args, warmup=1, iters=5)
-        lut_bytes = G * N * 4 * 8  # idx + wts
-        if name == "sample_tiles_grouped":
-            nbytes = rows_read * K * itemsize + G * N * K * itemsize + lut_bytes
-            flops = 2 * n_live * K
-            library_ms = cuda_ms(torch.sparse.mm, *lib, warmup=2, iters=10)
-            lib_s = f"library_ms(sparse.mm, CSR of the taps)={library_ms:.4f}"
-            err = errs[f"sample bf16 K={K}"]
-        else:
-            nbytes = (rows_read * K * itemsize + G * N * K * itemsize + lut_bytes
-                      + G * P * K * 4 + G * N * 4 * 4)  # + dmaps f32 + d_wts f32
-            flops = 2 * n_live * K + 2 * n_taps * K
-            # no single library call gives both outputs: dmaps alone is a
-            # sparse product with the transposed CSR, d_wts has none
-            library_ms = None
-            dmaps_ms = cuda_ms(torch.sparse.mm, csr_t, flat_gout, warmup=2, iters=10)
-            lib_s = (f"library_ms=null (dmaps alone, sparse.mm with the transposed CSR: {dmaps_ms:.4f} ms; "
-                     f"d_wts has no single library call)")
-            err = max(errs[f"dmaps bf16 K={K}"], errs[f"d_wts bf16 K={K}"])
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[maps.dtype] * 1e3
-        entry = {
-            "name": name, "route": "cuda", "source": GROUPED_SRC,
-            "replaces": f"{WARP_TPU}:{955 if name == 'sample_tiles_grouped' else 1288}",
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-        }
-        log(f"[grouped] {name} bf16 K={K}: ms={ms:.4f} plain_ms={plain_ms:.4f} {lib_s} "
-            f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}: {nbytes / 1e6:.1f} MB = {rows_read} map rows "
-            f"read once + outputs + LUT; {flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}) "
-            f"roofline_share={entry['bound_ms'] / ms:.3f}")
-        entries.append(entry)
-    log(f"[grouped] taps a source row: mean {float(per_row.mean()):.1f}, max {int(per_row.max())} "
-        f"(scatter_tapdot_grouped walks a row's taps in one warp)")
+    offsets, _ = gc.inverse_taps(idx, P, live=wts != 0)
+    per_live = (offsets[1:] - offsets[:-1]).float()
+    log(f"[grouped] taps a source row at G=7 N=43200: mean {float(per_row.mean()):.1f}, max {int(per_row.max())} "
+        f"(scatter_tapdot_grouped walks them all); of weight != 0: mean {float(per_live.mean()):.1f}, "
+        f"max {int(per_live.max())} (scatter_taps_grouped walks these)")
     return entries
+
+
+def serve_inputs(cfg, B=16, seed=0):
+    """uint8 frames from a numpy seed and ring cameras for ``cfg``."""
+    from vsta_tpu_torch.data.synthetic import make_ring_camera
+
+    V, (H, W) = cfg.data.views, cfg.data.img_size
+    frames = np.random.default_rng(seed).integers(0, 256, (B, V, H, W, 3), dtype=np.uint8)
+    Ks, Rts = zip(*(make_ring_camera(v, V, img_hw=(H, W)) for v in range(V)))
+    K = np.broadcast_to(np.stack(Ks), (B, V, 3, 3)).astype(np.float32)
+    Rt = np.broadcast_to(np.stack(Rts), (B, V, 4, 4)).astype(np.float32)
+    return frames, K, Rt
+
+
+def check_served(cfg, out, B):
+    D, (Hb, Wb) = cfg.eval.max_dets, cfg.model.bev_size
+    for k, shape in (("boxes", (B, D, 4)), ("scores", (B, D)), ("valid", (B, D)), ("heatmap", (B, Hb, Wb, 1))):
+        check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)} != {shape}")
+    for k in ("boxes", "scores", "heatmap"):
+        check(bool(torch.isfinite(out[k]).all()), f"{k} not finite")
+    check(out["valid"].dtype == torch.bool, "valid dtype")
+
+
+def timed_requests(cfg, serve_fn, inputs, B, warm, timed, label):
+    """``warm`` + ``timed`` requests of batch B; logs the median latency
+    and the peak memory; returns (last output, requests made)."""
+    args = tuple(a[:B] for a in inputs)
+    for _ in range(warm):
+        check_served(cfg, serve_fn(*args), B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(timed):
+        t = time.perf_counter()
+        out = serve_fn(*args)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        check_served(cfg, out, B)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(lat))
+    log(f"[serve] {label} B={B}: latency per request (host clock, uint8 frames in, synchronised) "
+        f"median={med * 1e3:.2f} ms all={[round(x * 1e3, 2) for x in lat]} -> {B / med:.1f} f/s; "
+        f"peak device memory {peak:.2f} GiB; valid dets/frame {float(out['valid'].float().sum(1).mean()):.1f}")
+    return out, warm + timed
+
+
+def deform_serving_phase(dev, cfg_path=DEFORM):
+    """configs/wildtrack_deform.yaml served at full width (bf16, batch 16
+    and 1, random weights): latency, the forward's parts, peak memory,
+    two launches of sample_tiles_grouped a request, and the heatmap with
+    the kernels against the heatmap with their plain versions. Returns
+    the launches."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.geometry import bev_sample_coords_with_depth, ground_grid
+    from vsta_tpu_torch.models.bevnet import positional_encoding
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.ops.decode import decode_detections
+    from vsta_tpu_torch.serving import build_serving_fn
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    cfg = load_config(str(cfg_path))
+    (H, W), (Hb, Wb) = cfg.data.img_size, cfg.model.bev_size
+    t0 = time.perf_counter()
+    state = init_state_dict(cfg, seed=0)
+    # the sampling heads start at zero kernels, where the sampling does not
+    # depend on the query: give them small random ones (offsets of about a
+    # pixel) so that the learned path is what is served
+    g = torch.Generator().manual_seed(7)
+    for name, scale in (("offsets", 0.05), ("attn", 0.05)):
+        w = state[f"deform_fusion.{name}.weight"]
+        state[f"deform_fusion.{name}.weight"] = scale * torch.randn(w.shape, generator=g)
+    serve = build_serving_fn(cfg, state, device="cuda")
+    model = serve.model
+    log(f"[deform-serve] model built: {sum(v.numel() for v in state.values())} weights, "
+        f"{time.perf_counter() - t0:.1f}s, compute dtype {model.dtype}, ATTN_STRIDE {model.attn_stride}")
+    inputs = serve_inputs(cfg)
+    counters = grouped_counters() + (warp_tiles_counter(),)
+    reset(counters)
+    _, n16 = timed_requests(cfg, serve, inputs, 16, 3, 5, "deform bf16")
+    _, n1 = timed_requests(cfg, serve, inputs, 1, 2, 5, "deform bf16")
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"[deform-serve] {n16 + n1} requests, launches {json.dumps(launches)}")
+    check(launches == {"sample_tiles_grouped": 2 * (n16 + n1), "scatter_tapdot_grouped": 0, "scatter_taps_grouped": 0,
+                       "taps_dot_grouped": 0, "warp_tiles": 0}, f"deform serving launches {launches}")
+
+    # the forward's parts (CUDA events)
+    x, k, rt = (torch.as_tensor(a, device=dev) for a in inputs)
+    with torch.no_grad():
+        normed = (x.float() - 127.5) / 64.0
+        kw = dict(bounds=cfg.model.bev_bounds, conf_thresh=cfg.eval.conf_thresh,
+                  nms_dist_m=cfg.eval.nms_dist_m, max_dets=cfg.eval.max_dets)
+        for B in (16, 1):
+            feats = model.encoder(normed[:B])
+            Hf, Wf = feats.shape[2:4]
+            grid = ground_grid(Hb, Wb, cfg.model.bev_bounds, device=dev)
+            coords, depth_w = bev_sample_coords_with_depth(k[0], rt[0], (H, W), (Hf, Wf), grid)
+            pos = positional_encoding(Hb, Wb, cfg.model.bev_bounds, device=dev)[None].expand(B, Hb, Wb, 2)
+            query = model.warped_query(feats, coords)
+            q_in = torch.cat([query, pos.to(query.dtype)], dim=-1)
+            outs = model(x[:B], k[:B], rt[:B])
+            layers = {
+                "encoder": cuda_ms(model.encoder, normed[:B], warmup=2, iters=5),
+                "query_warp": cuda_ms(model.warped_query, feats, coords, warmup=2, iters=5),
+                "deformable_fusion": cuda_ms(model.attention_residual, feats, coords, depth_w, q_in, warmup=2, iters=5),
+                "head": cuda_ms(model.detector, outs["bev_feat"].to(model.dtype), warmup=2, iters=5),
+                "decode": cuda_ms(decode_detections, outs["heatmap"], outs["offset"], outs["size"],
+                                  warmup=2, iters=10, **kw),
+                "forward": cuda_ms(model, x[:B], k[:B], rt[:B], warmup=1, iters=5),
+            }
+            log(f"[deform-serve] layers B={B} (CUDA events, ms): " + json.dumps(layers))
+    profile_request(serve, inputs, "one deform B=16 request")
+
+    # the same requests on the plain versions: the sampler rounds once on
+    # both sides, so the heatmaps may differ by no more than 2 bf16 ulps
+    for B in (16, 1):
+        args = tuple(a[:B] for a in inputs)
+        got = serve(*args)["heatmap"]
+        before = [c.launches for c in counters]
+        model.grouped = gc.PLAIN
+        try:
+            ref = serve(*args)["heatmap"]
+        finally:
+            model.grouped = gc.KERNELS
+        check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
+        diff = (got - ref).abs()
+        ok = bool((diff <= 2 * bf16_ulp(ref)).all())
+        log(f"[deform-serve] bf16 B={B} heatmap, kernels vs plain versions: max_abs_diff={float(diff.max()):.3e} "
+            f"(<= 2 bf16 ulps of |ref|) {'ok' if ok else 'FAIL'}")
+        check(ok, f"deform bf16 heatmap at batch {B} with the kernels disagrees with the plain versions")
+    return launches
+
+
+def grouped_counters():
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+
+    return (gc.sample_tiles_grouped, gc.scatter_tapdot_grouped, gc.scatter_taps_grouped, gc.taps_dot_grouped)
+
+
+def warp_tiles_counter():
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles
+
+    return warp_tiles
+
+
+def reset(counters) -> None:
+    for c in counters:
+        c.launches = 0
 
 
 def serving_phase(dev, cfg_path=FLAGSHIP):
     from vsta_tpu_torch.config import load_config
     from vsta_tpu_torch.convert import init_state_dict
-    from vsta_tpu_torch.data.synthetic import make_ring_camera
     from vsta_tpu_torch.ops.decode import decode_detections
     from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles, warp_tiles_ref
     from vsta_tpu_torch.serving import build_serving_fn
@@ -330,46 +633,16 @@ def serving_phase(dev, cfg_path=FLAGSHIP):
 
     cfg = load_config(str(cfg_path))
     V, (H, W) = cfg.data.views, cfg.data.img_size
-    Hb, Wb = cfg.model.bev_size
     P = math.ceil(H / 8) * math.ceil(W / 8)  # the stride-8 map of OUT_INDEX 2
     t0 = time.perf_counter()
     state = init_state_dict(cfg, seed=0)
     serve = build_serving_fn(cfg, state, device="cuda")
     log(f"[serve] model built: {sum(v.numel() for v in state.values())} weights, "
         f"{time.perf_counter() - t0:.1f}s, compute dtype {serve.model.dtype}")
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (16, V, H, W, 3), dtype=np.uint8)
-    Ks, Rts = zip(*(make_ring_camera(v, V, img_hw=(H, W)) for v in range(V)))
-    K16 = np.broadcast_to(np.stack(Ks), (16, V, 3, 3)).astype(np.float32)
-    Rt16 = np.broadcast_to(np.stack(Rts), (16, V, 4, 4)).astype(np.float32)
-
-    def check_out(out, B):
-        D = cfg.eval.max_dets
-        for k, shape in (("boxes", (B, D, 4)), ("scores", (B, D)), ("valid", (B, D)), ("heatmap", (B, Hb, Wb, 1))):
-            check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)} != {shape}")
-        for k in ("boxes", "scores", "heatmap"):
-            check(bool(torch.isfinite(out[k]).all()), f"{k} not finite")
-        check(out["valid"].dtype == torch.bool, "valid dtype")
+    frames, K16, Rt16 = serve_inputs(cfg)
 
     def run(serve_fn, B, warm, timed, label):
-        args = (frames[:B], K16[:B], Rt16[:B])
-        for _ in range(warm):
-            check_out(serve_fn(*args), B)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        lat = []
-        for _ in range(timed):
-            t = time.perf_counter()
-            out = serve_fn(*args)
-            torch.cuda.synchronize()
-            lat.append(time.perf_counter() - t)
-            check_out(out, B)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        med = float(np.median(lat))
-        log(f"[serve] {label} B={B}: latency per request (host clock, uint8 frames in, synchronised) "
-            f"median={med * 1e3:.2f} ms all={[round(x * 1e3, 2) for x in lat]} -> {B / med:.1f} f/s; "
-            f"peak device memory {peak:.2f} GiB; valid dets/frame {float(out['valid'].float().sum(1).mean()):.1f}")
-        return out, warm + timed
+        return timed_requests(cfg, serve_fn, (frames, K16, Rt16), B, warm, timed, label)
 
     launches = {}
     # bf16 main path: batch 16 takes the resident dispatch (compute-dtype out)
@@ -386,7 +659,7 @@ def serving_phase(dev, cfg_path=FLAGSHIP):
     check(warp_out_dtype(V, P, 16 * cfg.model.bev_proj_ch, torch.float32) == torch.float32, "dispatch")
     serve32 = build_serving_fn(cfg32, state, device="cuda")
     warp_tiles.launches = 0
-    _, n32 = run(serve32, 16, 1, 3, "f32")
+    _, n32 = run(serve32, 16, 1, 2, "f32")
     launches["windowed"] = warp_tiles.launches
     log(f"[serve] f32: {n32} requests, warp_tiles launches {warp_tiles.launches}")
     check(warp_tiles.launches == n32, "warp kernel launches != requests on the f32 path")
@@ -499,39 +772,37 @@ def grad_distance(a, b):
                   reverse=True)
 
 
-def training_phase(dev, cfg_path=FLAGSHIP):
-    """The flagship training step on the card; returns each kernel's
-    launches on this path."""
-    from vsta_tpu_torch.config import load_config
+def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=True, named=(), extra=None):
+    """Train-step calls of ``cfg`` on the card: time a call, its split,
+    peak memory; each kernel's launches a call against ``per_call``;
+    parameters that move on every ACCUM_STEPS-th call and BatchNorm
+    statistics on every call; one call's gradients with the kernels
+    against the same call on their plain versions, the parameters in
+    ``named`` on a line of their own. ``extra(grads_with, g_kernel,
+    spread)`` runs a path's own check (``spread``: the worst distance
+    between two runs with the kernels). Returns the launches."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
-    from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
     from vsta_tpu_torch.training.state import (
         apply_gradients, batch_to_device, create_state, gradients, loss_fn, make_train_step,
     )
 
-    cfg = load_config(str(cfg_path))
-    B, V, (H, W) = cfg.data.batch_size, cfg.data.views, cfg.data.img_size
-    P = math.ceil(H / 8) * math.ceil(W / 8)
-    check(warp_out_dtype(V, P, B * cfg.model.bev_proj_ch, torch.bfloat16) == torch.bfloat16, "dispatch")
-    check(cfg.model.bev_proj_ch > 40 + 1, "the flagship takes the warp-first backward")
+    B = cfg.data.batch_size
     t0 = time.perf_counter()
     state = create_state(cfg, seed=0, device="cuda", steps_per_epoch=100)
     model = state.model
-    log(f"[train] state built: {time.perf_counter() - t0:.1f}s, batch {B}, ACCUM_STEPS {cfg.train.accum_steps}, "
+    log(f"[{label}] state built: {time.perf_counter() - t0:.1f}s, batch {B}, ACCUM_STEPS {cfg.train.accum_steps}, "
         f"compute dtype {model.dtype}, {sum(p.numel() for p in model.parameters())} parameters")
     train_step = make_train_step(cfg)
     batches = [train_batch(cfg, B, seed) for seed in range(4)]
-    watched = ["view_proj", "detector.stem0.weight", "encoder.backbone.stages.6.0.expand_conv.weight"]
     stats = ["encoder.backbone.stem_bn.running_mean", "encoder.backbone.stages.6.0.project_bn.running_var"]
 
     def snapshot(names):
         sd = model.state_dict()
         return {k: sd[k].clone() for k in names}
 
-    counters = (warp_tiles, gc.sample_tiles_grouped, gc.scatter_tapdot_grouped)
-    for c in counters:
-        c.launches = 0
-    warm, timed = 2, 8
+    counters = (warp_tiles,) + grouped_counters()
+    reset(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lat = []
@@ -552,13 +823,14 @@ def training_phase(dev, cfg_path=FLAGSHIP):
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = float(np.median(lat))
-    log(f"[train] {warm + timed} calls: per call (host clock, synchronised) median={med * 1e3:.2f} ms "
+    log(f"[{label}] {warm + timed} calls: per call (host clock, synchronised) median={med * 1e3:.2f} ms "
         f"all={[round(x * 1e3, 2) for x in lat]} -> {B / med:.2f} frame sets/s; peak device memory {peak:.2f} GiB; "
         f"last losses {json.dumps({k: round(float(v), 4) for k, v in metrics.items()})}")
-    log(f"[train] parameters moved on every {cfg.train.accum_steps}nd call only, BatchNorm statistics on every call; "
+    log(f"[{label}] parameters moved on every {cfg.train.accum_steps}nd call only, BatchNorm statistics on every call; "
         f"launches {json.dumps(launches)}")
     for name, n in launches.items():
-        check(n == warm + timed, f"{name}: {n} launches in {warm + timed} train-step calls")
+        check(n == per_call[name] * (warm + timed),
+              f"{label}: {name} launched {n} times in {warm + timed} train-step calls, expected {per_call[name]} a call")
 
     # where a call's time goes (CUDA events around its three parts)
     split = {"forward+loss": [], "backward": [], "optimizer": []}
@@ -575,13 +847,15 @@ def training_phase(dev, cfg_path=FLAGSHIP):
         torch.cuda.synchronize()
         for (k, v), a, z in zip(split.items(), ev[:-1], ev[1:]):
             v.append(a.elapsed_time(z))
-    log("[train] split per call, CUDA events, median of 4 (ms): "
+    del losses, grads
+    log(f"[{label}] split per call, CUDA events, median of 4 (ms): "
         + json.dumps({k: round(float(np.median(v)), 3) for k, v in split.items()})
         + " (the optimizer's time is an update on every second call)")
-    profile_request(train_step, (state, batches[0]), "one train-step call (an update call)")
+    if profile:
+        profile_request(train_step, (state, batches[0]), f"one {label} call (an update call)")
 
     # one call's gradients with the kernels, again with the kernels, and
-    # with all three on their plain versions (same weights, same batch)
+    # with all of them on their plain versions (same weights, same batch)
     b = batch_to_device(batches[0], dev)
 
     def grads_with(warp, grouped):
@@ -600,29 +874,128 @@ def training_phase(dev, cfg_path=FLAGSHIP):
     dist = grad_distance(g_kernel, g_plain)
     limit = 2e-2
     worst = ", ".join(f"{d:.3e} ({k})" for d, k in dist[:3])
-    log(f"[train] gradients, kernels vs plain versions: per-parameter ||a-b|| / max(||b||, 1e-2 max||b||): "
+    log(f"[{label}] gradients, kernels vs plain versions: per-parameter ||a-b|| / max(||b||, 1e-2 max||b||): "
         f"worst {worst}; median {dist[len(dist) // 2][0]:.3e}; kernels run twice: worst {spread[0][0]:.3e}; "
         f"limit {limit:.0e} (bf16: the plain scatter adds with atomics in another order, and dfeats is "
         f"rounded to bf16)")
-    check(dist[0][0] <= limit, f"training gradients with the kernels disagree with the plain versions ({worst})")
+    check(dist[0][0] <= limit, f"{label}: gradients with the kernels disagree with the plain versions ({worst})")
+    if named:
+        by_name = {k: d for d, k in dist}
+        norms = {k: float(g_kernel[k].float().norm()) for k in named}
+        log(f"[{label}] gradients that exist only through d_wts, kernels vs plain versions: "
+            + ", ".join(f"{k} {by_name[k]:.3e} (||g|| {norms[k]:.3e})" for k in named))
+        check(all(n > 0 and math.isfinite(n) for n in norms.values()), f"{label}: a d_wts gradient is zero: {norms}")
+    if extra is not None:
+        extra(grads_with, g_kernel, spread[0][0])
     return launches
 
 
-def small_train_phase(dev):
+def flagship_training_phase(dev, cfg_path=FLAGSHIP):
+    """configs/wildtrack.yaml as it stands (batch 2, ACCUM_STEPS 2, bf16).
+    Its warp's tap weights come from the calibration, so its backward runs
+    scatter_taps_grouped alone; the gradients must equal those of a
+    backward forced through the fused kernel."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles
+
+    cfg = load_config(str(cfg_path))
+    B, V, (H, W) = cfg.data.batch_size, cfg.data.views, cfg.data.img_size
+    P = math.ceil(H / 8) * math.ceil(W / 8)
+    check(warp_out_dtype(V, P, B * cfg.model.bev_proj_ch, torch.bfloat16) == torch.bfloat16, "dispatch")
+    check(cfg.model.bev_proj_ch > 40 + 1, "the flagship takes the warp-first backward")
+
+    def fused_dmaps(gout, idx, wts, P_):
+        maps = torch.zeros((gout.shape[0], P_, gout.shape[2]), dtype=gout.dtype, device=gout.device)
+        return gc.scatter_tapdot_grouped(maps, gout, idx, wts)[0]
+
+    def forced_fused(grads_with, g_kernel, spread):
+        n = gc.scatter_tapdot_grouped.launches
+        g_fused = grads_with(warp_tiles, gc.KERNELS._replace(scatter_taps=fused_dmaps))
+        check(gc.scatter_tapdot_grouped.launches == n + 1, "the forced run did not take the fused kernel")
+        same = all(torch.equal(g_kernel[k], g_fused[k]) for k in g_kernel)
+        worst, worst_k = grad_distance(g_fused, g_kernel)[0]
+        log(f"[train] gradients through scatter_taps_grouped against those forced through scatter_tapdot_grouped: "
+            f"bit-equal {same}; worst distance {worst:.3e} ({worst_k}); two runs of one route differ by {spread:.3e}")
+        # bit-equal where the card's backward is deterministic (two runs of
+        # one route agree); where it is not, equality cannot show, and the
+        # distance is held to the limit of the kernels-vs-plain check (the
+        # kernels' own dmaps are held bit-equal in the grouped phase)
+        check(same or (spread > 0 and worst <= 2e-2), "the flagship's gradients changed with the backward's dispatch")
+
+    return training_phase(
+        dev, cfg, "train",
+        per_call={"warp_tiles": 1, "sample_tiles_grouped": 1, "scatter_taps_grouped": 1,
+                  "scatter_tapdot_grouped": 0, "taps_dot_grouped": 0},
+        watched=["view_proj", "detector.stem0.weight", "encoder.backbone.stages.6.0.expand_conv.weight"],
+        warm=2, timed=6, extra=forced_fused,
+    )
+
+
+def deform_training_phase(dev, cfg_path=DEFORM):
+    """configs/wildtrack_deform.yaml as it stands (batch 2, ACCUM_STEPS 2,
+    bf16, ATTN_STRIDE 4: the sampler's backward takes the fused kernel),
+    then the same with ATTN_STRIDE 1 (it takes the two one-sided kernels).
+    Returns the launches of both runs, added up."""
+    import dataclasses
+
+    from vsta_tpu_torch.config import load_config
+
+    cfg = load_config(str(cfg_path))
+    check(cfg.model.attn_stride == 4 and cfg.model.fusion == "deform_attn", "the deform config")
+    watched = ["query_proj", "deform_fusion.offsets.weight", "deform_fusion.attn.bias", "deform_fusion.value.weight",
+               "encoder.proj.weight", "detector.stem0.weight"]
+    named = ["deform_fusion.offsets.weight", "deform_fusion.offsets.bias", "deform_fusion.attn.weight",
+             "deform_fusion.attn.bias"]
+    total = training_phase(
+        dev, cfg, "deform-train",
+        per_call={"warp_tiles": 0, "sample_tiles_grouped": 2, "scatter_taps_grouped": 1,
+                  "scatter_tapdot_grouped": 1, "taps_dot_grouped": 0},
+        watched=watched, warm=2, timed=8, named=named,
+    )
+    cfg1 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attn_stride=1))
+    stride1 = training_phase(
+        dev, cfg1, "deform-train ATTN_STRIDE 1",
+        per_call={"warp_tiles": 0, "sample_tiles_grouped": 2, "scatter_taps_grouped": 2,
+                  "scatter_tapdot_grouped": 0, "taps_dot_grouped": 1},
+        watched=watched, warm=1, timed=4, profile=False, named=named,
+    )
+    return {k: total[k] + stride1[k] for k in total}
+
+
+SMALL_DEFORM = {"FUSION": "deform_attn", "WARP_IMPL": "fused", "ATTN_HEADS": 2, "ATTN_POINTS": 2, "ATTN_STRIDE": 2}
+
+
+def small_state_dict(cfg, seed):
+    """Random weights for a small model; a deformable one gets non-zero
+    kernels in its sampling heads, so that the sampling depends on the
+    query."""
+    from vsta_tpu_torch.convert import init_state_dict
+
+    sd = init_state_dict(cfg, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    for name in ("offsets", "attn"):
+        key = f"deform_fusion.{name}.weight"
+        if key in sd:
+            sd[key] = 0.3 * torch.randn(sd[key].shape, generator=g)
+    return sd
+
+
+def small_train_phase(dev, family="concat"):
     """One f32 train step of a small model on the card against the CPU."""
     from vsta_tpu_torch.config import from_dict
-    from vsta_tpu_torch.convert import init_state_dict
     from vsta_tpu_torch.training.state import create_state, make_train_step
 
     cfg = from_dict({
         "DATA": {"BATCH_SIZE": 2, "IMG_SIZE": [3, 64, 96], "VIEWS": 3},
         "MODEL": {"BACKBONE": "efficientnet_b0", "FEAT_DIM": 48, "BEV_SIZE": [32, 16, 48],
                   "BEV_BOUNDS": [-12.0, 12.0, -4.0, 4.0], "BEV_PROJ_CH": 48,
-                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas"},
+                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas",
+                  **(SMALL_DEFORM if family == "deform_attn" else {})},
         "LOSS": {"MAX_OBJECTS": 16},
         "RUNTIME": {"USE_AMP": False},
     })
-    sd = init_state_dict(cfg, seed=1)
+    sd = small_state_dict(cfg, seed=1)
     batch = train_batch(cfg, 2, seed=5)
     out = {}
     for where in ("cpu", dev):
@@ -640,16 +1013,15 @@ def small_train_phase(dev):
     (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out[str(dev)]
     loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
     dist, dist_k = grad_distance(g_gpu, g_cpu)[0]
-    log(f"[small] f32 train step, card vs CPU: losses and grad_norm max rel diff {loss_err:.3e} (<= 1e-4); "
+    log(f"[small] {family} f32 train step, card vs CPU: losses and grad_norm max rel diff {loss_err:.3e} (<= 1e-4); "
         f"gradients worst per-parameter ||a-b|| / max(||b||, 1e-2 max||b||) = {dist:.3e} ({dist_k}) "
         f"(<= 5e-3; TF32 off)")
-    check(loss_err <= 1e-4 and dist <= 5e-3, "small f32 train step on the card disagrees with the CPU")
+    check(loss_err <= 1e-4 and dist <= 5e-3, f"small {family} f32 train step on the card disagrees with the CPU")
 
 
-def small_model_phase(dev):
+def small_model_phase(dev, family="concat"):
     """A small f32 model on the card against the same model on the CPU."""
     from vsta_tpu_torch.config import from_dict
-    from vsta_tpu_torch.convert import init_state_dict
     from vsta_tpu_torch.data.synthetic import make_ring_camera
     from vsta_tpu_torch.serving import build_serving_fn
 
@@ -657,10 +1029,11 @@ def small_model_phase(dev):
         "DATA": {"IMG_SIZE": [3, 64, 96], "VIEWS": 3},
         "MODEL": {"BACKBONE": "efficientnet_b0", "FEAT_DIM": 48, "BEV_SIZE": [32, 16, 48],
                   "BEV_BOUNDS": [-12.0, 12.0, -4.0, 4.0], "BEV_PROJ_CH": 32,
-                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas"},
+                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas",
+                  **(SMALL_DEFORM if family == "deform_attn" else {})},
         "RUNTIME": {"USE_AMP": False},
     })
-    state = init_state_dict(cfg, seed=1)
+    state = small_state_dict(cfg, seed=1)
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, (2, 3, 64, 96, 3), dtype=np.uint8)
     Ks, Rts = zip(*(make_ring_camera(v, 3, radius=10.0, height=4.0, img_hw=(64, 96)) for v in range(3)))
@@ -669,8 +1042,8 @@ def small_model_phase(dev):
     cpu = build_serving_fn(cfg, state, device="cpu")(frames, K, Rt)
     gpu = build_serving_fn(cfg, state, device=dev)(frames, K, Rt)
     d = float((gpu["heatmap"].cpu() - cpu["heatmap"]).abs().max())
-    log(f"[small] f32 heatmap, card vs CPU: max_abs_diff={d:.3e} (<= 1e-4; TF32 off)")
-    check(d <= 1e-4, "small f32 model on the card disagrees with the CPU")
+    log(f"[small] {family} f32 heatmap, card vs CPU: max_abs_diff={d:.3e} (<= 1e-4; TF32 off)")
+    check(d <= 1e-4, f"small {family} f32 model on the card disagrees with the CPU")
 
 
 def main() -> int:
@@ -701,25 +1074,35 @@ def main() -> int:
     entries += grouped_phase(dev)
     log(f"[kernel] phases {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    launches = serving_phase(dev)
+    serve_launches = serving_phase(dev)
     log(f"[serve] phase {time.perf_counter() - t:.1f}s")
-    small_model_phase(dev)
     t = time.perf_counter()
-    train_launches = training_phase(dev)
+    deform_serve = deform_serving_phase(dev)
+    log(f"[deform-serve] phase {time.perf_counter() - t:.1f}s")
+    for family in ("concat", "deform_attn"):
+        small_model_phase(dev, family)
+    t = time.perf_counter()
+    train = flagship_training_phase(dev)
     log(f"[train] phase {time.perf_counter() - t:.1f}s")
-    small_train_phase(dev)
-    # launches on the main paths, each counted from 0 over its own run:
-    # serving (both warp dispatches) and training (the resident dispatch
-    # and the grouped sampler's two kernels)
-    counts = [
-        launches["resident"] + train_launches["warp_tiles"],
-        launches["windowed"],
-        train_launches["sample_tiles_grouped"],
-        train_launches["scatter_tapdot_grouped"],
-    ]
-    for entry, n in zip(entries, counts):
-        entry["launches"] = n
-        check(n > 0, f"{entry['name']} was not launched on its path")
+    t = time.perf_counter()
+    deform_train = deform_training_phase(dev)
+    log(f"[deform-train] phase {time.perf_counter() - t:.1f}s")
+    for family in ("concat", "deform_attn"):
+        small_train_phase(dev, family)
+    # launches on the main paths, each path counted from 0 over its own
+    # run: flagship serving (both warp dispatches) and training, deform
+    # serving and training (ATTN_STRIDE 4 and 1)
+    grouped = {k: train[k] + deform_serve[k] + deform_train[k] for k in deform_serve if k != "warp_tiles"}
+    counts = {
+        f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"],
+        f"{WARP_TPU}:353": serve_launches["windowed"],
+        **{e["replaces"]: grouped[e["name"]] for e in entries if e["name"] in grouped},
+    }
+    check(len(entries) == 6 and len(counts) == 6, "the kernels line lists six kernels")
+    for entry in entries:
+        entry["launches"] = counts[entry["replaces"]]
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on a model path")
+    log("[launches] on the model paths: " + json.dumps({e["name"]: e["launches"] for e in entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(line)

@@ -8,7 +8,10 @@ names:
 * conv kernels HWIO -> OIHW (a depthwise ``[k, k, 1, C]`` -> ``[C, 1, k, k]``);
 * BatchNorm ``scale``/``bias`` from params, ``mean``/``var`` from
   batch_stats; GroupNorm ``scale``/``bias``;
-* ``view_proj`` [V, F, C_out] and ``view_proj_bias`` stay raw tensors.
+* ``view_proj`` [V, F, C_out] and ``view_proj_bias`` (concat), or
+  ``query_proj`` and ``query_proj_bias`` (deform_attn), stay raw tensors;
+* the deformable fusion's ``Dense`` kernels [in, out] -> ``Linear``
+  weights [out, in].
 
 :func:`params_from_flax` maps a ``params`` tree alone (or a gradient tree,
 which has its shape) and :func:`batch_stats_from_flax` a ``batch_stats``
@@ -42,6 +45,11 @@ def _conv(p: Mapping, out: StateDict, name: str) -> None:
     out[f"{name}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
     if "bias" in p:
         out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _dense(p: Mapping, out: StateDict, name: str) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    out[f"{name}.bias"] = _t(p["bias"])
 
 
 def _bn(p: Optional[Mapping], s: Optional[Mapping], out: StateDict, name: str) -> None:
@@ -84,8 +92,12 @@ def _from_flax(params: Optional[Mapping], stats: Optional[Mapping]) -> StateDict
     if params is None:
         return out
     _conv(params["encoder"]["proj"], out, "encoder.proj")
-    out["view_proj"] = _t(params["view_proj"])
-    out["view_proj_bias"] = _t(params["view_proj_bias"])
+    fusion = "query" if "query_proj" in params else "view"
+    out[f"{fusion}_proj"] = _t(params[f"{fusion}_proj"])
+    out[f"{fusion}_proj_bias"] = _t(params[f"{fusion}_proj_bias"])
+    if fusion == "query":
+        for layer in ("value", "offsets", "attn", "out"):
+            _dense(params["deform_fusion"][layer], out, f"deform_fusion.{layer}")
     det = params["detector"]
     for i in range(3):
         _conv(det[f"stem{i}"], out, f"detector.stem{i}")
@@ -117,16 +129,19 @@ def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:
 
     Kernels are LeCun-normal truncated at 2 sigma (Flax's default init),
     biases 0, norm scales 1, BatchNorm statistics (0, 1), with the head's
-    CenterNet constants. Built on the CPU.
+    CenterNet constants and, for ``deform_attn``, the sampling heads' zero
+    kernels and ring bias. Built on the CPU.
     """
     g = torch.Generator().manual_seed(seed)
     model = BEVNet.from_config(cfg)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name == "view_proj":  # [V, F, C_out]: fan-in V * F
+            if name in ("view_proj", "query_proj"):  # [V, F, C_out]: fan-in V * F
                 fan_in = p.shape[0] * p.shape[1]
             elif p.ndim == 4:  # OIHW
                 fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            elif p.ndim == 2:  # a Dense layer's [out, in]
+                fan_in = p.shape[1]
             else:
                 p.fill_(1.0 if name.rsplit(".", 1)[-1] == "weight" else 0.0)
                 continue
@@ -136,4 +151,6 @@ def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:
             u = lo + (1.0 - 2.0 * lo) * torch.rand(p.shape, generator=g, dtype=torch.float64)
             p.copy_((torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0) * std).float())
         model.detector.init_centernet_()
+        if model.fusion == "deform_attn":
+            model.deform_fusion.init_sampling_()
     return model.state_dict()

@@ -1,19 +1,22 @@
-// Grouped bilinear sampling and its fused backward:
+// Grouped bilinear sampling and its gradients:
 //
 //     sample:          out[g, n, k]   = sum_t w[g,n,t] * maps[g, idx[g,n,t], k]
 //     scatter_tapdot:  dmaps[g, p, k] = sum_{n,t: idx[g,n,t] = p} w[g,n,t] * gout[g,n,k]
 //                      d_wts[g, n, t] = sum_k maps[g, idx[g,n,t], k] * gout[g,n,k]
+//     scatter_taps:    dmaps alone
+//     taps_dot:        d_wts alone
 //
 // maps [G, P, K] (P padded source pixels, K channels: batch folded in),
 // idx/w [G, N, 4] bilinear taps of N samples, gout [G, N, K]. maps and gout
 // are float32 or bfloat16 (the compute dtype); sums are float32; dmaps and
 // d_wts are float32, out is the compute dtype.
 //
-// Replaces the TPU kernels sample_tiles_grouped and scatter_tapdot_grouped
-// (vsta_tpu/ops/warp_pallas.py). Those build one-hot [span, tile] matrices
-// and multiply them on the matrix unit over 512-row spans of a
-// VMEM-resident map, because Mosaic has no dynamic gather or scatter. A GPU
-// gathers directly, so none of that carries over.
+// Replaces the TPU kernels sample_tiles_grouped, scatter_tapdot_grouped,
+// scatter_taps_windowed and taps_dot_grouped (vsta_tpu/ops/warp_pallas.py).
+// Those build one-hot [span, tile] matrices and multiply them on the matrix
+// unit over 512-row spans of a VMEM-resident map, because Mosaic has no
+// dynamic gather or scatter. A GPU gathers directly, so none of that
+// carries over.
 //
 // Rounding: with bf16 maps each tap weight is rounded to bf16 before its
 // product, as the TPU kernels cast the one-hot matrix to the compute dtype;
@@ -40,6 +43,22 @@
 // to dmaps but their d_wts is real. A row no tap reads gets dmaps = 0.
 // Rows wider than one pass (32 lanes x kChanPerLane channels) are walked
 // once per pass, d_wts adding up the passes.
+//
+// scatter_taps: the same walk over the same CSR without the tap dots, so
+// it needs no map and no reduction across lanes: one thread owns one
+// (source row, channel) and adds w * gout[n, k] over the row's taps in
+// order, which makes its dmaps equal scatter_tapdot's bit for bit.
+// Consecutive threads own consecutive channels of a row, so the cotangent
+// loads coalesce and the (tap, weight) loads are one broadcast. The
+// wrapper may leave taps of weight 0 out of the CSR: they add nothing.
+//
+// taps_dot: sample-major, no sort and no CSR. A sub-warp of L lanes (8, 16
+// or 32, the least that covers K up to 32) owns one sample: the lanes
+// stride over K, each summing its share of the 4 dots <map row of tap t,
+// gout[n]> in f32, a butterfly of shuffles adds the shares, and lane 0
+// stores the sample's 4 dots as one 16-byte word. Every tap is computed,
+// weight 0 or not (a clamped index is a valid row; the caller's mask
+// multiplies junk away); a tap outside [0, P) gives 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -227,6 +246,59 @@ scatter_tapdot_kernel(const T* __restrict__ maps, const T* __restrict__ gout,
   }
 }
 
+// one thread a (source row, channel): item = r * K + k over rows * K items
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_taps_kernel(const T* __restrict__ gout, const float* __restrict__ wts,
+                    const int* __restrict__ order, const int* __restrict__ offsets,
+                    float* __restrict__ dmaps, long long items, int K) {
+  const long long item = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (item >= items) return;
+  const long long r = item / K;
+  const int k = static_cast<int>(item - r * K);
+  const int beg = offsets[r], end = offsets[r + 1];
+  float acc = 0.f;
+  for (int j = beg; j < end; ++j) {
+    const int f = order[j];
+    const float w = tap_weight(wts[f], gout);
+    acc = fmaf(w, to_f(gout[static_cast<long long>(f >> 2) * K + k]), acc);
+  }
+  dmaps[item] = acc;
+}
+
+// one sub-warp of L lanes a sample s in [0, G*N); kThreads / L samples a block
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads)
+taps_dot_kernel(const T* __restrict__ maps, const T* __restrict__ gout,
+                const int* __restrict__ idx, float* __restrict__ dwts,
+                long long samples, int P, int N, int K) {
+  const int lane = threadIdx.x % L;
+  const long long s = static_cast<long long>(blockIdx.x) * (kThreads / L) + threadIdx.x / L;
+  const bool live = s < samples;  // every lane stays for the shuffles
+  float dot[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    const T* gmap = maps + (s / N) * P * static_cast<long long>(K);
+    const T* grow = gout + s * K;
+    const int4 tap = __ldg(reinterpret_cast<const int4*>(idx) + s);
+    const int id[4] = {tap.x, tap.y, tap.z, tap.w};
+    for (int k = lane; k < K; k += L) {
+      const float gv = to_f(grow[k]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (id[t] >= 0 && id[t] < P)
+          dot[t] = fmaf(to_f(gmap[static_cast<long long>(id[t]) * K + k]), gv, dot[t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) dot[t] += __shfl_xor_sync(kFull, dot[t], o);
+  }
+  if (live && lane == 0)
+    reinterpret_cast<float4*>(dwts)[s] = make_float4(dot[0], dot[1], dot[2], dot[3]);
+}
+
 template <typename T>
 int launch_sample(const void* maps, const int* idx, const float* wts, void* out,
                   int G, int P, int N, int K, cudaStream_t stream) {
@@ -258,6 +330,38 @@ int launch_scatter(const void* maps, const void* gout, const float* wts, const i
       static_cast<const T*>(maps), static_cast<const T*>(gout), wts, order, offsets,
       dmaps, dwts, rows, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_scatter_taps(const void* gout, const float* wts, const int* order, const int* offsets,
+                        float* dmaps, long long rows, int K, cudaStream_t stream) {
+  const long long items = rows * K;
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return -1;
+  scatter_taps_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(gout), wts, order, offsets, dmaps, items, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int L>
+int launch_taps_dot_l(const T* maps, const T* gout, const int* idx, float* dwts,
+                      long long samples, int P, int N, int K, cudaStream_t stream) {
+  const int per_block = kThreads / L;
+  const long long blocks = (samples + per_block - 1) / per_block;
+  if (blocks >= (1LL << 31)) return -1;
+  taps_dot_kernel<T, L><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      maps, gout, idx, dwts, samples, P, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_taps_dot(const void* maps, const void* gout, const int* idx, float* dwts,
+                    long long samples, int P, int N, int K, cudaStream_t stream) {
+  const T* m = static_cast<const T*>(maps);
+  const T* g = static_cast<const T*>(gout);
+  if (K <= 8) return launch_taps_dot_l<T, 8>(m, g, idx, dwts, samples, P, N, K, stream);
+  if (K <= 16) return launch_taps_dot_l<T, 16>(m, g, idx, dwts, samples, P, N, K, stream);
+  return launch_taps_dot_l<T, 32>(m, g, idx, dwts, samples, P, N, K, stream);
 }
 
 }  // namespace
@@ -297,6 +401,41 @@ int grouped_scatter_tapdot_launch(const void* maps, const void* gout, const void
     return launch_scatter<__nv_bfloat16>(maps, gout, w, o, off, dm, dw, static_cast<int>(rows), K, s);
   if (dtype == 0)
     return launch_scatter<float>(maps, gout, w, o, off, dm, dw, static_cast<int>(rows), K, s);
+  return -1;
+}
+
+// dmaps alone; order/offsets as above (the wrapper may leave out taps of
+// weight 0)
+int grouped_scatter_taps_launch(const void* gout, const void* wts, const void* order,
+                                const void* offsets, void* dmaps, int G, int P, int K,
+                                int dtype, void* stream) {
+  if (G < 0 || P < 1 || K < 1) return -1;
+  const long long rows = static_cast<long long>(G) * P;
+  if (rows == 0) return 0;
+  if (rows >= (1LL << 31)) return -1;
+  const float* w = static_cast<const float*>(wts);
+  const int* o = static_cast<const int*>(order);
+  const int* off = static_cast<const int*>(offsets);
+  float* dm = static_cast<float*>(dmaps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_scatter_taps<__nv_bfloat16>(gout, w, o, off, dm, rows, K, s);
+  if (dtype == 0) return launch_scatter_taps<float>(gout, w, o, off, dm, rows, K, s);
+  return -1;
+}
+
+// d_wts alone; idx and dwts [G, N, 4], 16-byte aligned
+int grouped_taps_dot_launch(const void* maps, const void* gout, const void* idx, void* dwts,
+                            int G, int P, int N, int K, int dtype, void* stream) {
+  if (G < 0 || P < 1 || N < 0 || K < 1) return -1;
+  const long long samples = static_cast<long long>(G) * N;
+  if (samples == 0) return 0;
+  if (reinterpret_cast<uintptr_t>(idx) % 16 != 0 || reinterpret_cast<uintptr_t>(dwts) % 16 != 0)
+    return -1;
+  const int* i = static_cast<const int*>(idx);
+  float* dw = static_cast<float*>(dwts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_taps_dot<__nv_bfloat16>(maps, gout, i, dw, samples, P, N, K, s);
+  if (dtype == 0) return launch_taps_dot<float>(maps, gout, i, dw, samples, P, N, K, s);
   return -1;
 }
 

@@ -1,14 +1,25 @@
-"""BEVNet: encoder -> shared-camera warp + concat fusion + projection ->
-positional encoding -> CenterNet head.
+"""BEVNet: encoder -> cross-view fusion onto the BEV grid -> positional
+encoding -> CenterNet head.
 
-The port carries the JAX flagship path: ``FUSION: concat`` with
-``WARP_IMPL: pallas`` and static cameras. The encoder's 1x1 projection is
-folded into the per-view projection (a ones channel carries its bias),
-and :func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj_cuda` runs the
-warp; with autograd on, :class:`~vsta_tpu_torch.ops.warp_cuda.FusedWarpProj`
-runs it with its backward. Inputs and outputs are channels-last, as in the
-JAX package. ``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and
-cuts the gradient at its output.
+The port carries two model families of the JAX package, both with static
+cameras:
+
+* ``FUSION: concat`` with ``WARP_IMPL: pallas`` (the flagship). The
+  encoder's 1x1 projection is folded into the per-view projection (a ones
+  channel carries its bias), and
+  :func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj_cuda` runs the warp;
+  with autograd on, :class:`~vsta_tpu_torch.ops.warp_cuda.FusedWarpProj`
+  runs it with its backward.
+* ``FUSION: deform_attn``. A warped-sum query
+  (:func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj` through the
+  grouped sampler, in serving and training) is refined by
+  :class:`~vsta_tpu_torch.models.fusion.DeformableFusion` on a query grid
+  strided by ``ATTN_STRIDE``, whose residual is upsampled bilinearly in
+  f32 and added.
+
+Inputs and outputs are channels-last, as in the JAX package.
+``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and cuts the
+gradient at the encoder's output.
 """
 
 from __future__ import annotations
@@ -17,14 +28,16 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..geometry import bev_sample_coords_with_depth, ground_grid
 from ..ops.grouped_cuda import KERNELS
-from ..ops.warp_cuda import FusedWarpProj, fused_warp_proj_cuda, warp_tiles
+from ..ops.warp_cuda import FusedWarpProj, fused_warp_proj, fused_warp_proj_cuda, warp_tiles
 from .encoders.encoder import ViewEncoder
+from .fusion import DeformableFusion
 from .heads import BEVDetectorHead
 
 POS_CH = 2
@@ -66,33 +79,60 @@ class BEVNet(nn.Module):
         head_mid2: int = 128,
         freeze_backbone: bool = False,
         dtype: torch.dtype = torch.float32,
+        fusion: str = "concat",
+        attn_heads: int = 4,
+        attn_points: int = 4,
+        attn_stride: int = 4,
     ):
         super().__init__()
+        if fusion not in ("concat", "deform_attn"):
+            raise NotImplementedError(
+                f"FUSION={fusion!r}: the port has concat and deform_attn; mean/sum/max and "
+                "attn are ROADMAP Queue 1, 'Fusions'"
+            )
         self.views, self.bev_size, self.bev_bounds = views, bev_size, bev_bounds
         self.freeze_backbone = freeze_backbone
         self.dtype = dtype
+        self.fusion, self.attn_stride = fusion, max(1, attn_stride)
+        # concat folds the encoder's projection into the view projection;
+        # the deformable fusion samples the projected maps themselves
         self.encoder = ViewEncoder(
-            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=True
+            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=fusion == "concat"
         )
-        self.view_proj = nn.Parameter(torch.empty(views, feat_dim, bev_proj_ch))
-        self.view_proj_bias = nn.Parameter(torch.zeros(bev_proj_ch))
+        if fusion == "concat":
+            self.view_proj = nn.Parameter(torch.empty(views, feat_dim, bev_proj_ch))
+            self.view_proj_bias = nn.Parameter(torch.zeros(bev_proj_ch))
+        else:
+            self.query_proj = nn.Parameter(torch.empty(views, feat_dim, bev_proj_ch))
+            self.query_proj_bias = nn.Parameter(torch.zeros(bev_proj_ch))
+            self.deform_fusion = DeformableFusion(
+                views, feat_dim, bev_proj_ch + POS_CH, attn_heads, attn_points, bev_proj_ch, dtype
+            )
         self.detector = BEVDetectorHead(
             bev_proj_ch + POS_CH, bev_bounds, bev_size, default_box_wh,
             head_mid1, head_mid2, dtype,
         )
-        # the kernels the model runs; a check may swap in warp_tiles_ref
-        # and grouped_cuda.PLAIN, their plain versions
+        # the kernels the model runs (concat: the warp kernel, and the
+        # grouped sampler in its backward; deform_attn: the grouped sampler
+        # alone); a check may swap in warp_tiles_ref and grouped_cuda.PLAIN,
+        # their plain versions
         self.warp = warp_tiles
         self.grouped = KERNELS
 
     @classmethod
     def from_config(cls, cfg: Config) -> "BEVNet":
         m = cfg.model
-        if m.fusion != "concat" or m.warp_impl != "pallas":
+        if m.fusion not in ("concat", "deform_attn"):
             raise NotImplementedError(
-                f"FUSION={m.fusion!r} WARP_IMPL={m.warp_impl!r}: the port runs concat "
-                "fusion through the warp kernel (WARP_IMPL pallas) only; the other "
-                "fusions are ROADMAP Queue 1, 'Fusions'"
+                f"FUSION={m.fusion!r}: the port has concat and deform_attn; mean/sum/max "
+                "(SimpleFusion) and attn (AttentionFusion) with the unfused warp_views "
+                "path are ROADMAP Queue 1, 'Fusions'"
+            )
+        if m.fusion == "concat" and m.warp_impl != "pallas":
+            raise NotImplementedError(
+                f"FUSION='concat' WARP_IMPL={m.warp_impl!r}: the port runs concat fusion "
+                "through the warp kernel (WARP_IMPL pallas) only; the XLA-style 'fused' and "
+                "'gather' concat paths are ROADMAP Queue 1, 'Fusions'"
             )
         if not m.static_cameras:
             raise NotImplementedError(
@@ -111,6 +151,10 @@ class BEVNet(nn.Module):
             head_mid2=m.head_mid2,
             freeze_backbone=cfg.train.freeze_backbone,
             dtype=torch.bfloat16 if cfg.runtime.use_amp else torch.float32,
+            fusion=m.fusion,
+            attn_heads=m.attn_heads,
+            attn_points=m.attn_points,
+            attn_stride=m.attn_stride,
         )
 
     def train(self, mode: bool = True) -> "BEVNet":
@@ -135,13 +179,62 @@ class BEVNet(nn.Module):
             scale = 1.0 / (torch.as_tensor(IMAGENET_STD, device=dev) * 255.0)
             images = (images.float() - mean) * scale
 
-        feats, enc_pk, enc_pb = self.encoder(images)
+        enc_out = self.encoder(images)
+        feats, enc_pk, enc_pb = enc_out if self.fusion == "concat" else (enc_out, None, None)
         if self.freeze_backbone:
             feats = feats.detach()
         _, _, Hf, Wf, _ = feats.shape
         grid = ground_grid(Hb, Wb, self.bev_bounds, device=dev)
-        coords, _ = bev_sample_coords_with_depth(K[0], Rt[0], (H, W), (Hf, Wf), grid)
+        coords, depth_w = bev_sample_coords_with_depth(K[0], Rt[0], (H, W), (Hf, Wf), grid)
+        pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
+        pos = pos[None].expand(B, Hb, Wb, POS_CH)
 
+        if self.fusion == "deform_attn":
+            bev_main = self._deform(feats, coords, depth_w, pos)
+        else:
+            bev_main = self._concat(feats, enc_pk, enc_pb, coords)
+        bev_feat = torch.cat([bev_main, pos.to(bev_main.dtype)], dim=-1)
+        out = self.detector(bev_feat)
+        out["bev_feat"] = bev_feat.float()
+        return out
+
+    def _deform(self, feats, coords, depth_w, pos) -> torch.Tensor:
+        """The warped-sum query plus the deformable fusion's residual."""
+        query = self.warped_query(feats, coords)
+        q_in = torch.cat([query, pos.to(query.dtype)], dim=-1)
+        return query + self.attention_residual(feats, coords, depth_w, q_in)
+
+    def warped_query(self, feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """feats [B, V, Hf, Wf, C], coords [V, Hb, Wb, 2] -> the views'
+        warped, projected sum [B, Hb, Wb, C_out], through the grouped
+        sampler in serving and training alike."""
+        return fused_warp_proj(
+            feats, coords, self.query_proj, self.query_proj_bias, self.dtype, grouped=self.grouped
+        )
+
+    def attention_residual(self, feats, coords, depth_w, q_in) -> torch.Tensor:
+        """The deformable fusion on the query grid strided by
+        ``attn_stride``, upsampled bilinearly in f32 to the BEV grid;
+        q_in [B, Hb, Wb, C_out + 2] -> [B, Hb, Wb, C_out] in its dtype."""
+        B = feats.shape[0]
+        Hb, Wb = self.bev_size
+        coords_b = coords[None].expand(B, *coords.shape)
+        depth_b = depth_w[None].expand(B, *depth_w.shape)
+        s = self.attn_stride
+        q = q_in
+        if s > 1:
+            coords_b, depth_b, q = coords_b[:, :, ::s, ::s], depth_b[:, :, ::s, ::s], q_in[:, ::s, ::s]
+        res = self.deform_fusion(feats, coords_b, q, depth_b, grouped=self.grouped)
+        if s > 1:
+            res = F.interpolate(
+                res.float().permute(0, 3, 1, 2), size=(Hb, Wb), mode="bilinear",
+                align_corners=False, antialias=False,
+            ).permute(0, 2, 3, 1).to(q_in.dtype)
+        return res
+
+    def _concat(self, feats, enc_pk, enc_pb, coords) -> torch.Tensor:
+        """The shared-camera warp + concat fusion + projection."""
+        dev = feats.device
         # fold the encoder proj into the view projection: warp C_raw + 1
         # channels (the ones channel carries the encoder proj bias)
         composite = torch.einsum("cf,vfo->vco", enc_pk.float(), self.view_proj)
@@ -150,17 +243,9 @@ class BEVNet(nn.Module):
         ones = torch.ones(feats.shape[:-1] + (1,), dtype=feats.dtype, device=dev)
         feats = torch.cat([feats, ones], dim=-1)
         if torch.is_grad_enabled():
-            bev_main = FusedWarpProj.apply(
+            return FusedWarpProj.apply(
                 feats, coords, kernel, self.view_proj_bias, self.dtype, self.warp, self.grouped
             )
-        else:
-            bev_main = fused_warp_proj_cuda(
-                feats, coords, kernel, self.view_proj_bias, self.dtype, warp=self.warp
-            )
-
-        pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
-        pos = pos[None].expand(B, Hb, Wb, POS_CH).to(bev_main.dtype)
-        bev_feat = torch.cat([bev_main, pos], dim=-1)
-        out = self.detector(bev_feat)
-        out["bev_feat"] = bev_feat.float()
-        return out
+        return fused_warp_proj_cuda(
+            feats, coords, kernel, self.view_proj_bias, self.dtype, warp=self.warp
+        )

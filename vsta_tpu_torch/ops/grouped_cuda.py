@@ -1,33 +1,41 @@
-"""The grouped bilinear sampler (``csrc/grouped_taps.cu``) and its gradient.
+"""The grouped bilinear sampler (``csrc/grouped_taps.cu``) and its gradients.
 
-:func:`sample_tiles_grouped` computes
-``out[g, n, k] = sum_t wts[g,n,t] * maps[g, idx[g,n,t], k]``, and
-:func:`scatter_tapdot_grouped` both of its gradients in one pass:
+Four kernels. :func:`sample_tiles_grouped` computes
+``out[g, n, k] = sum_t wts[g,n,t] * maps[g, idx[g,n,t], k]``. Its gradients:
 
 * ``dmaps[g, p, k] = sum_{n,t: idx[g,n,t] = p} wts[g,n,t] * gout[g,n,k]``;
 * ``d_wts[g, n, t] = <maps[g, idx[g,n,t]], gout[g,n]>``, for every tap,
   zero-weight taps included (clamped indices are valid rows).
 
-They replace the TPU kernels ``sample_tiles_grouped`` and
-``scatter_tapdot_grouped`` (``vsta_tpu/ops/warp_pallas.py``); the
-``*_ref`` functions are their plain PyTorch versions. A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises. In bf16
-every tap weight is rounded to bf16 before its product, as the TPU kernels
-cast their one-hot weight matrix to the compute dtype; sums are float32.
+:func:`scatter_tapdot_grouped` computes both in one pass,
+:func:`scatter_taps_grouped` dmaps alone and :func:`taps_dot_grouped`
+d_wts alone. They replace the TPU kernels ``sample_tiles_grouped``,
+``scatter_tapdot_grouped``, ``scatter_taps_windowed`` and
+``taps_dot_grouped`` (``vsta_tpu/ops/warp_pallas.py``); the ``*_ref``
+functions are their plain PyTorch versions. A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. In bf16 every tap
+weight is rounded to bf16 before its product, as the TPU kernels cast
+their one-hot weight matrix to the compute dtype; sums are float32.
 
 :class:`GroupedSample` is the sampler as an autograd Function, the twin of
-the custom VJP of ``_warp_pairs_shared`` (``vsta_tpu/ops/warp.py``).
+the custom VJP of ``_warp_pairs_shared`` (``vsta_tpu/ops/warp.py``). Its
+backward computes what is asked for: dmaps alone through
+:func:`scatter_taps_grouped` (constant tap weights: the calibrated warps),
+d_wts alone through :func:`taps_dot_grouped`, and both (learned sampling
+locations: the deformable fusion) through the fused kernel where the
+reference takes its fused kernel (:func:`fused_backward_fits`), else
+through the two one-sided kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import kernels
-from .warp import gather_taps, tap_weights
+from .warp import anchored_taps, flat_taps, gather_taps, pad_feat_br, tap_weights
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,21 +53,35 @@ def sample_tiles_grouped_ref(maps: torch.Tensor, idx: torch.Tensor, wts: torch.T
     return out.to(maps.dtype)
 
 
+def scatter_taps_grouped_ref(
+    gout: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, P: int
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scatter_taps_grouped`."""
+    G, _, K = gout.shape
+    w = tap_weights(wts, gout.dtype)
+    g = gout.to(torch.float32)
+    base = torch.arange(G, device=gout.device, dtype=torch.int64)[:, None, None] * P
+    rows = (base + idx.long()).reshape(-1)  # (g, n, t) order, as the kernel sums
+    contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, K)
+    dmaps = torch.zeros((G * P, K), dtype=torch.float32, device=gout.device)
+    dmaps.index_add_(0, rows, contrib)
+    return dmaps.reshape(G, P, K)
+
+
+def taps_dot_grouped_ref(maps: torch.Tensor, gout: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`taps_dot_grouped`."""
+    taps = gather_taps(maps, idx).to(torch.float32)
+    return (taps * gout.to(torch.float32)[:, :, None, :]).sum(-1)
+
+
 def scatter_tapdot_grouped_ref(
     maps: torch.Tensor, gout: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`scatter_tapdot_grouped`."""
-    G, P, K = maps.shape
-    w = tap_weights(wts, maps.dtype)
-    g = gout.to(torch.float32)
-    base = torch.arange(G, device=maps.device, dtype=torch.int64)[:, None, None] * P
-    rows = (base + idx.long()).reshape(-1)  # (g, n, t) order, as the kernel sums
-    contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, K)
-    dmaps = torch.zeros((G * P, K), dtype=torch.float32, device=maps.device)
-    dmaps.index_add_(0, rows, contrib)
-    taps = gather_taps(maps, idx).to(torch.float32)
-    d_wts = (taps * g[:, :, None, :]).sum(-1)
-    return dmaps.reshape(G, P, K), d_wts
+    return (
+        scatter_taps_grouped_ref(gout, idx, wts, maps.shape[1]),
+        taps_dot_grouped_ref(maps, gout, idx),
+    )
 
 
 def _library() -> ctypes.CDLL:
@@ -71,28 +93,42 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.grouped_scatter_tapdot_launch.restype = ctypes.c_int
+    lib.grouped_scatter_taps_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.grouped_scatter_taps_launch.restype = ctypes.c_int
+    lib.grouped_taps_dot_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.grouped_taps_dot_launch.restype = ctypes.c_int
     lib.grouped_taps_error_string.argtypes = [ctypes.c_int]
     lib.grouped_taps_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name, maps, idx, wts, *others):
-    if maps.ndim != 3 or idx.ndim != 3 or idx.shape[-1] != 4 or idx.shape != wts.shape:
+def _check(name, maps_shape, dtype, idx, wts, *tensors):
+    """Validate one call's shapes and dtypes (``maps_shape`` is [G, P, K];
+    ``wts`` is None for a kernel that reads no weights; ``tensors`` are its
+    float inputs, maps and/or gout). False for CPU tensors, which take the
+    plain version; True for tensors on one CUDA device, contiguous; raises
+    otherwise."""
+    wts_shape = idx.shape if wts is None else wts.shape
+    if len(maps_shape) != 3 or idx.ndim != 3 or idx.shape[-1] != 4 or idx.shape != wts_shape:
         raise ValueError(
             f"{name} wants maps [G, P, K] and idx/wts [G, N, 4], got "
-            f"{tuple(maps.shape)}, {tuple(idx.shape)}, {tuple(wts.shape)}"
+            f"{tuple(maps_shape)}, {tuple(idx.shape)}, {tuple(wts_shape)}"
         )
-    if idx.shape[0] != maps.shape[0]:
-        raise ValueError(f"{name}: {maps.shape[0]} maps but {idx.shape[0]} tap groups")
-    if maps.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name} takes float32/bfloat16 maps, got {maps.dtype}")
-    if idx.dtype != torch.int32 or wts.dtype != torch.float32:
-        raise TypeError(f"{name} wants int32 idx and float32 wts, got {idx.dtype}, {wts.dtype}")
-    G, P, K = maps.shape
+    G, P, K = maps_shape
+    if idx.shape[0] != G:
+        raise ValueError(f"{name}: {G} maps but {idx.shape[0]} tap groups")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} takes float32/bfloat16 maps and cotangents, got {dtype}")
+    if idx.dtype != torch.int32 or (wts is not None and wts.dtype != torch.float32):
+        raise TypeError(
+            f"{name} wants int32 idx and float32 wts, got {idx.dtype}, {None if wts is None else wts.dtype}"
+        )
     if max(G * P, G * idx.shape[1] * 4, K) >= 2**31:
         raise ValueError(f"{name} shape too large: G={G} P={P} N={idx.shape[1]} K={K}")
-    dev = maps.device
-    tensors = (maps, idx, wts) + others
+    tensors = tensors + ((idx,) if wts is None else (idx, wts))
+    dev = tensors[0].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -100,6 +136,14 @@ def _check(name, maps, idx, wts, *others):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
     return True
+
+
+def _check_gout(name, gout, idx, K, dtype):
+    if gout.shape != idx.shape[:2] + (K,) or gout.dtype != dtype:
+        raise ValueError(
+            f"{name} wants gout [G, N, K] in the maps' dtype, got {tuple(gout.shape)} "
+            f"{gout.dtype} for K = {K}, taps {tuple(idx.shape)}, maps' dtype {dtype}"
+        )
 
 
 def _raise_on(lib, rc: int, name: str) -> None:
@@ -115,7 +159,7 @@ def sample_tiles_grouped(maps: torch.Tensor, idx: torch.Tensor, wts: torch.Tenso
     ``maps``, accumulated in float32. ``sample_tiles_grouped.launches``
     counts kernel launches.
     """
-    if not _check("sample_tiles_grouped", maps, idx, wts):
+    if not _check("sample_tiles_grouped", maps.shape, maps.dtype, idx, wts, maps):
         return sample_tiles_grouped_ref(maps, idx, wts)
     G, P, K = maps.shape
     N = idx.shape[1]
@@ -134,17 +178,21 @@ def sample_tiles_grouped(maps: torch.Tensor, idx: torch.Tensor, wts: torch.Tenso
 sample_tiles_grouped.launches = 0
 
 
-def inverse_taps(idx: torch.Tensor, P: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def inverse_taps(
+    idx: torch.Tensor, P: int, live: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """The taps grouped by the source row they read: CSR over the G*P rows.
 
     Returns (offsets [G*P + 1] int32, order [G*N*4] int32): the taps of row
     ``r = g*P + p`` are ``order[offsets[r]:offsets[r+1]]``, flat indices
     ``(g*N + n)*4 + t`` in increasing order. A tap outside [0, P) belongs
-    to no row.
+    to no row, nor does one that ``live`` ([G, N, 4] bool) marks False.
     """
     G = idx.shape[0]
     base = torch.arange(G, device=idx.device, dtype=torch.int64)[:, None, None] * P
     ok = (idx >= 0) & (idx < P)
+    if live is not None:
+        ok &= live
     key = torch.where(ok, base + idx.long(), G * P).reshape(-1)
     order = torch.argsort(key, stable=True).to(torch.int32)
     counts = torch.bincount(key, minlength=G * P + 1)[: G * P]
@@ -164,12 +212,8 @@ def scatter_tapdot_grouped(
     the kernel walks source rows over :func:`inverse_taps` and never adds
     across threads. ``scatter_tapdot_grouped.launches`` counts launches.
     """
-    if gout.shape != idx.shape[:2] + maps.shape[2:] or gout.dtype != maps.dtype:
-        raise ValueError(
-            f"scatter_tapdot_grouped wants gout [G, N, K] in the maps' dtype, got "
-            f"{tuple(gout.shape)} {gout.dtype} for maps {tuple(maps.shape)} {maps.dtype}"
-        )
-    if not _check("scatter_tapdot_grouped", maps, idx, wts, gout):
+    _check_gout("scatter_tapdot_grouped", gout, idx, maps.shape[-1], maps.dtype)
+    if not _check("scatter_tapdot_grouped", maps.shape, maps.dtype, idx, wts, maps, gout):
         return scatter_tapdot_grouped_ref(maps, gout, idx, wts)
     G, P, K = maps.shape
     offsets, order = inverse_taps(idx, P)
@@ -190,26 +234,124 @@ def scatter_tapdot_grouped(
 scatter_tapdot_grouped.launches = 0
 
 
+def scatter_taps_grouped(
+    gout: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, P: int
+) -> torch.Tensor:
+    """dmaps alone: the transpose of :func:`sample_tiles_grouped`.
+
+    gout [G, N, K] float32/bfloat16 (the compute dtype); idx/wts
+    [G, N, 4]; P rows a map. Returns dmaps [G, P, K] float32, equal bit
+    for bit to :func:`scatter_tapdot_grouped`'s: the same walk of source
+    rows over :func:`inverse_taps`, without the tap dots and without the
+    taps of weight 0, which add nothing to a finite cotangent. (Where
+    ``gout`` holds an inf or a NaN at a sample with a tap of weight 0, the
+    fused kernel and the plain version give NaN, 0 * inf, in that tap's
+    row, and this kernel a finite value: the equality is for finite
+    cotangents.) It needs no maps.
+    ``scatter_taps_grouped.launches`` counts launches.
+    """
+    if gout.ndim != 3:
+        raise ValueError(f"scatter_taps_grouped wants gout [G, N, K], got {tuple(gout.shape)}")
+    G, _, K = gout.shape
+    _check_gout("scatter_taps_grouped", gout, idx, K, gout.dtype)
+    if not _check("scatter_taps_grouped", (G, P, K), gout.dtype, idx, wts, gout):
+        return scatter_taps_grouped_ref(gout, idx, wts, P)
+    offsets, order = inverse_taps(idx, P, live=wts != 0)
+    dmaps = torch.empty((G, P, K), dtype=torch.float32, device=gout.device)
+    lib = _library()
+    with torch.cuda.device(gout.device):
+        rc = lib.grouped_scatter_taps_launch(
+            gout.data_ptr(), wts.data_ptr(), order.data_ptr(), offsets.data_ptr(), dmaps.data_ptr(),
+            G, P, K, _DTYPE_CODE[gout.dtype], torch.cuda.current_stream(gout.device).cuda_stream,
+        )
+    _raise_on(lib, rc, "scatter_taps_grouped")
+    scatter_taps_grouped.launches += 1
+    return dmaps
+
+
+scatter_taps_grouped.launches = 0
+
+
+def taps_dot_grouped(maps: torch.Tensor, gout: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """d_wts alone: ``d_wts[g, n, t] = <maps[g, idx[g,n,t]], gout[g,n]>``.
+
+    maps [G, P, K] and gout [G, N, K] in the compute dtype; idx
+    [G, N, 4]. It takes no weights: every tap's dot is taken, whatever its
+    weight. Returns [G, N, 4] float32, summed in float32.
+    ``taps_dot_grouped.launches`` counts launches.
+    """
+    _check_gout("taps_dot_grouped", gout, idx, maps.shape[-1], maps.dtype)
+    if not _check("taps_dot_grouped", maps.shape, maps.dtype, idx, None, maps, gout):
+        return taps_dot_grouped_ref(maps, gout, idx)
+    G, P, K = maps.shape
+    N = idx.shape[1]
+    d_wts = torch.empty((G, N, 4), dtype=torch.float32, device=maps.device)
+    lib = _library()
+    with torch.cuda.device(maps.device):
+        rc = lib.grouped_taps_dot_launch(
+            maps.data_ptr(), gout.data_ptr(), idx.data_ptr(), d_wts.data_ptr(),
+            G, P, N, K, _DTYPE_CODE[maps.dtype], torch.cuda.current_stream(maps.device).cuda_stream,
+        )
+    _raise_on(lib, rc, "taps_dot_grouped")
+    taps_dot_grouped.launches += 1
+    return d_wts
+
+
+taps_dot_grouped.launches = 0
+
+# the reference's rule for its fused backward kernel
+# (scatter_tapdot_grouped, warp_pallas.py): one group's blocks, double
+# buffered, must fit this much VMEM, in spans of 512 rows and tiles of 128
+FUSED_BUDGET_BYTES = 48 * 1024 * 1024
+_SPAN_ROWS = 512
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def fused_backward_fits(P: int, N: int, K: int, compute_dtype: torch.dtype) -> bool:
+    """Whether the reference takes its fused backward kernel for groups of
+    P rows, N samples and K channels: the map in the compute dtype, dmaps
+    in f32, the cotangent, and 48 bytes a sample of taps and d_wts, all
+    double-buffered, within :data:`FUSED_BUDGET_BYTES`. Where it does not,
+    the reference runs the two one-sided kernels, and so does
+    :class:`GroupedSample`: the same shapes take the same family of
+    kernels in both packages."""
+    itemsize = torch.empty((), dtype=compute_dtype).element_size()
+    p_res, k_pad, n_pad = _round_up(P, 8) + _SPAN_ROWS, _round_up(K, 128), _round_up(N, 128)
+    return 2 * (p_res * k_pad * (itemsize + 4) + n_pad * k_pad * itemsize + n_pad * 48) <= FUSED_BUDGET_BYTES
+
+
 class GroupedKernels(NamedTuple):
-    """The two functions the sampler runs: the kernels, or (for a check on
-    the card) their plain versions."""
+    """The four functions the sampler runs: the kernels, or (for a check
+    on the card) their plain versions."""
 
     sample: Callable
     scatter_tapdot: Callable
+    scatter_taps: Callable
+    taps_dot: Callable
 
 
-KERNELS = GroupedKernels(sample_tiles_grouped, scatter_tapdot_grouped)
-PLAIN = GroupedKernels(sample_tiles_grouped_ref, scatter_tapdot_grouped_ref)
+KERNELS = GroupedKernels(
+    sample_tiles_grouped, scatter_tapdot_grouped, scatter_taps_grouped, taps_dot_grouped
+)
+PLAIN = GroupedKernels(
+    sample_tiles_grouped_ref, scatter_tapdot_grouped_ref, scatter_taps_grouped_ref, taps_dot_grouped_ref
+)
 
 
 class GroupedSample(torch.autograd.Function):
-    """Grouped bilinear sampling with the fused backward.
+    """Grouped bilinear sampling with its gradients.
 
     ``apply(maps, idx, wts, kernels)``: maps [G, P, K] in the compute
     dtype, idx [G, N, 4] int32, wts [G, N, 4] float32. The backward runs
-    ``kernels.scatter_tapdot`` once in the cotangent's precision and
+    in the cotangent's precision and computes what is asked for: dmaps
+    alone with ``kernels.scatter_taps``, d_wts alone with
+    ``kernels.taps_dot``, both with ``kernels.scatter_tapdot`` where
+    :func:`fused_backward_fits`, else with the two one-sided kernels. It
     returns dmaps in the cotangent's dtype, nothing for idx, and d_wts in
-    the weights' dtype when asked for.
+    the weights' dtype.
     """
 
     @staticmethod
@@ -221,13 +363,56 @@ class GroupedSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         maps, idx, wts = ctx.saved_tensors
+        need_maps, _, need_wts, _ = ctx.needs_input_grad
+        k = ctx.kernels
         kdtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
-        dmaps, d_wts = ctx.kernels.scatter_tapdot(
-            maps.to(kdtype).contiguous(), g.to(kdtype).contiguous(), idx, wts
-        )
+        g = g.to(kdtype).contiguous()
+        P, N, K = maps.shape[1], idx.shape[1], maps.shape[2]
+        dmaps = d_wts = None
+        if need_maps and need_wts and fused_backward_fits(P, N, K, kdtype):
+            dmaps, d_wts = k.scatter_tapdot(maps.to(kdtype).contiguous(), g, idx, wts)
+        else:
+            if need_maps:
+                dmaps = k.scatter_taps(g, idx, wts, P)
+            if need_wts:
+                d_wts = k.taps_dot(maps.to(kdtype).contiguous(), g, idx)
         return (
-            dmaps.to(g.dtype) if ctx.needs_input_grad[0] else None,
+            None if dmaps is None else dmaps.to(g.dtype),
             None,
-            d_wts.to(wts.dtype) if ctx.needs_input_grad[2] else None,
+            None if d_wts is None else d_wts.to(wts.dtype),
             None,
         )
+
+
+def sample_bilinear_many_scaled(
+    feats: torch.Tensor,
+    coords: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    *,
+    grouped: GroupedKernels = KERNELS,
+) -> torch.Tensor:
+    """Batched bilinear sampling through :class:`GroupedSample`, with a
+    per-sample scalar folded into the 4 tap weights: the twin of
+    ``sample_bilinear_many_scaled`` (``vsta_tpu/ops/warp.py``).
+
+    feats [G, Hf, Wf, C] in the compute dtype; coords [G, S, 2] (x, y)
+    feature pixels; scale [G, S] or None. Returns [G, S, C] =
+    ``scale[..., None] * bilinear_sample(feats, coords)`` with zeros
+    outside the map. The scale multiplies the float32 weights before the
+    kernel rounds them to the compute dtype. Differentiable in feats, in
+    scale and, through the tap weights, in coords.
+    """
+    G, Hf, Wf, C = feats.shape
+    anchors, wts = anchored_taps(coords, (Hf, Wf))
+    if scale is not None:
+        wts = wts * scale[..., None].to(wts.dtype)
+    fp = pad_feat_br(feats).reshape(G, (Hf + 1) * (Wf + 1), C)
+    return GroupedSample.apply(fp, flat_taps(anchors, Wf + 1), wts.contiguous(), grouped)
+
+
+def sample_bilinear_many(
+    feats: torch.Tensor, coords: torch.Tensor, *, grouped: GroupedKernels = KERNELS
+) -> torch.Tensor:
+    """:func:`sample_bilinear_many_scaled` without a scale: the twin of
+    ``sample_bilinear_many`` (``vsta_tpu/ops/warp.py``)."""
+    return sample_bilinear_many_scaled(feats, coords, None, grouped=grouped)

@@ -105,7 +105,10 @@ def anchored_taps(
     bilinear hat max(0, 1 - |tap - coord|) per axis, so taps the clamp
     moved off the true floor weigh 0, and taps on the zero pad row/column
     read zeros. A non-finite coordinate is moved far outside the map, which
-    zeroes its weights.
+    zeroes its weights. The weights are differentiable in the coordinates
+    (the anchors are integers and carry no gradient); where a hat touches
+    0 exactly the gradient is the mean of its two sides, as the JAX
+    package's ``maximum`` gives it.
     """
     Hf, Wf = feat_hw
     x, y = coords[..., 0], coords[..., 1]
@@ -116,8 +119,10 @@ def anchored_taps(
     ya = torch.floor(ys).clamp(0, Hf - 1).to(torch.int32)
     xa = torch.floor(xs).clamp(0, Wf - 1).to(torch.int32)
 
+    zero = torch.zeros((), dtype=torch.float32, device=coords.device)
+
     def tri(a, f):
-        return torch.clamp(1.0 - torch.abs(a.to(torch.float32) - f), min=0.0)
+        return torch.maximum(zero, 1.0 - torch.abs(a.to(torch.float32) - f))
 
     wy0, wy1 = tri(ya, ys), tri(ya + 1, ys)
     wx0, wx1 = tri(xa, xs), tri(xa + 1, xs)

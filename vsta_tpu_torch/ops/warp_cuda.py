@@ -148,7 +148,7 @@ def fused_warp_proj_cuda(
     if coords.ndim != 4:
         raise NotImplementedError(
             "per-frame cameras ([B, V, Hb, Wb, 2] coords) are ROADMAP Queue 1, "
-            "'Per-frame cameras'"
+            "'Per-frame cameras', with Queue 2's warp_views_sum_pallas"
         )
     Hb, Wb = coords.shape[1], coords.shape[2]
     N, P = Hb * Wb, Hf * Wf
@@ -180,8 +180,8 @@ def fused_warp_proj(
 
     Same contract as :func:`fused_warp_proj_cuda`, but the warp is the
     grouped sampler on the map padded by one zero row and column, with
-    :class:`~vsta_tpu_torch.ops.grouped_cuda.GroupedSample`'s fused
-    backward. Whichever side is narrower is warped: the projected
+    :class:`~vsta_tpu_torch.ops.grouped_cuda.GroupedSample`'s backward
+    (the maps' gradient alone: the tap weights come from the calibration). Whichever side is narrower is warped: the projected
     ``C_out`` channels when ``C_out < C``, else the raw ``C`` channels,
     projected after the warp. ``grouped`` picks the kernels or their
     plain versions.
@@ -191,7 +191,7 @@ def fused_warp_proj(
     if coords.ndim != 4:
         raise NotImplementedError(
             "per-frame cameras ([B, V, Hb, Wb, 2] coords) are ROADMAP Queue 1, "
-            "'Per-frame cameras'"
+            "'Per-frame cameras', with Queue 2's warp_views_sum_pallas"
         )
     Hb, Wb = coords.shape[1], coords.shape[2]
     N, Pp = Hb * Wb, (Hf + 1) * (Wf + 1)

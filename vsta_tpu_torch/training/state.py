@@ -44,7 +44,7 @@ class TrainState:
 
     @property
     def device(self) -> torch.device:
-        return self.model.view_proj.device
+        return next(self.model.parameters()).device
 
 
 def create_state(
