@@ -23,7 +23,10 @@ Phases, each of which raises on failure (exit code != 0):
    scatter_taps_grouped's dmaps bit-equal to the fused kernel's; the same
    readings for each, and both routes of the backward that wants both
    gradients (fused; the two one-sided kernels) timed at the sampler's
-   shapes;
+   shapes; the unfused fusions' shapes at K = 1,280: G = 14 (training,
+   sample_tiles_grouped and scatter_taps_grouped) and G = 112 (serving at
+   batch 16: one launch that writes 6.2e9 elements, every group held
+   against the plain version, 8 groups at a time);
 5. serving: configs/wildtrack.yaml at full width with random weights
    (bf16, batch 16 and 1, and f32 at batch 16, which takes the
    windowed dispatch), launch counts, latency, frames/s, peak memory;
@@ -46,10 +49,21 @@ Phases, each of which raises on failure (exit code != 0):
    calls (sample_tiles_grouped twice, scatter_taps_grouped and
    scatter_tapdot_grouped once each) and for 5 calls with ATTN_STRIDE 1
    (scatter_taps_grouped twice, taps_dot_grouped once), the gradients of
-   the offsets and attention heads on a line of their own; a small f32
-   train step of each family on the card against the CPU.
+   the offsets and attention heads on a line of their own; both configs
+   with per-frame cameras (warp_views_sum once forward, the grouped
+   sampler at G = 14 backward) and FUSION attn; a small f32 train step of
+   each family on the card against the CPU;
+7. the dense per-frame warp warp_views_sum vs its plain version at B = 16
+   and 2, V = 7, P = 2,040, N = 43,200, C = 128 (bf16 and f32 maps, ragged
+   C, an all-blind frame on poisoned maps, non-finite coordinates), with
+   the same readings; the grouped sampler's kernels at the per-frame
+   backward's shapes (G = 14 and 112, K = 128) inside phase 4;
+8. the ablation variants of the warp kernel (warp_tiles_variant: full,
+   const_weights, row0, no_gather) at K = 2,048, bf16 and f32, each against
+   its plain version, 'full' bit-equal to warp_tiles, and one line of the
+   four times.
 
-Prints the kernels JSON line (six kernels), the nvidia-smi line, then as the last line
+Prints the kernels JSON line (eight kernels), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
 and outside a checkout of the repository.
 """
@@ -79,6 +93,7 @@ WARP_SRC = "vsta_tpu_torch/csrc/warp_tiles.cu"
 WARP_K = 16 * 128  # flagship batch 16 x BEV_PROJ_CH 128
 TRAIN_K = 2 * 128  # the training forward: batch 2 x BEV_PROJ_CH 128
 GROUPED_SRC = "vsta_tpu_torch/csrc/grouped_taps.cu"
+VIEWS_SRC = "vsta_tpu_torch/csrc/warp_views_sum.cu"
 # the training backward's grouped sampler: 7 maps of the padded 35 x 61
 # stride-8 map, batch 2 x (40 + 1) raw channels
 GROUPED_G, GROUPED_HW, GROUPED_K = 7, (34, 60), 2 * 41
@@ -111,6 +126,43 @@ def flagship_lut(dev):
     grid = ground_grid(*BEV_HW, (-24.0, 24.0, -7.2, 7.2), device=dev)
     coords, _ = bev_sample_coords_with_depth(K, Rt, (270, 480), (34, 60), grid)
     return coords.reshape(7, -1, 2)
+
+
+def perframe_cameras(B, V, img_hw, seed=11, radius=(17.0, 23.0), height=(5.0, 7.0)):
+    """K [B, V, 3, 3] and Rt [B, V, 4, 4] float32: a ring of cameras a
+    frame, its radius and height drawn from a numpy seed within the given
+    ranges, so that every frame has another calibration."""
+    from vsta_tpu_torch.data.synthetic import make_ring_camera
+
+    rng = np.random.default_rng(seed)
+    Ks, Rts = [], []
+    for _ in range(B):
+        r, h = rng.uniform(*radius), rng.uniform(*height)
+        k, rt = zip(*(make_ring_camera(v, V, radius=r, height=h, img_hw=img_hw) for v in range(V)))
+        Ks.append(np.stack(k))
+        Rts.append(np.stack(rt))
+    return np.stack(Ks).astype(np.float32), np.stack(Rts).astype(np.float32)
+
+
+def perframe_coords(dev, B):
+    """[B, 7, N, 2] feature-pixel coordinates of the flagship BEV grid
+    under :func:`perframe_cameras`."""
+    from vsta_tpu_torch.geometry import bev_sample_coords_with_depth, ground_grid
+
+    K, Rt = (torch.as_tensor(a, device=dev) for a in perframe_cameras(B, 7, (270, 480)))
+    grid = ground_grid(*BEV_HW, (-24.0, 24.0, -7.2, 7.2), device=dev)
+    coords, _ = bev_sample_coords_with_depth(K, Rt, (270, 480), (34, 60), grid)
+    return coords.reshape(B, 7, -1, 2)
+
+
+def shared_taps_coo(idx, wts, P):
+    """The shared-camera warp as a sparse [N, V * P] matrix: the live taps
+    of idx/wts [V, N, 4], duplicates summed."""
+    V, N, _ = idx.shape
+    nz = wts != 0
+    row_of = torch.arange(N, device=idx.device)[None, :, None].expand(V, N, 4)[nz]
+    col_of = (torch.arange(V, device=idx.device)[:, None, None] * P + idx)[nz].long()
+    return torch.sparse_coo_tensor(torch.stack([row_of, col_of]), wts[nz], (N, V * P)).coalesce()
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -187,10 +239,7 @@ def kernel_phase(dev):
     nz = wts != 0
     nnz = int(nz.sum())
     rows = torch.unique((torch.arange(V, device=dev)[:, None, None] * P + idx)[nz]).numel()
-    vals = wts[nz]
-    row_of = torch.arange(N, device=dev)[None, :, None].expand(V, N, 4)[nz]
-    col_of = (torch.arange(V, device=dev)[:, None, None] * P + idx)[nz].long()
-    coo = torch.sparse_coo_tensor(torch.stack([row_of, col_of]), vals, (N, V * P)).coalesce()
+    coo = shared_taps_coo(idx, wts, P)
     entries = []
     for name, feats, out_dtype, replaces in (
         ("warp_tiles (resident dispatch: compute-dtype out)", bf, torch.bfloat16, f"{WARP_TPU}:162"),
@@ -226,6 +275,185 @@ def kernel_phase(dev):
         if replaces is not None:  # the K=256 shape is row 1's kernel again: logged, not a new entry
             entries.append(entry)
     return entries
+
+
+def perframe_kernel_phase(dev):
+    """The dense per-frame warp against its plain version at the shapes the
+    per-frame concat path gives it (B = 16 serving, 2 training; V = 7,
+    P = 34 * 60, N = 120 * 360, C = 128), and its times. Returns the
+    kernel's entry."""
+    from vsta_tpu_torch.ops.warp import precompute_warp_lut
+    from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    B, V, P, C = 16, 7, 34 * 60, 128
+    coords = perframe_coords(dev, B)
+    N = coords.shape[2]
+    idx, wts = precompute_warp_lut(coords, (34, 60))
+    check(float((coords[0] - coords[1]).abs().max()) > 0.5, "the frames share a calibration")
+    g = torch.Generator(device=dev).manual_seed(4)
+    f32 = torch.randn((B, V, P, C), generator=g, device=dev)
+    bf = f32.to(torch.bfloat16)
+    errs = {}
+
+    def compare(name, feats, i, w, rule="f32", blind=None):
+        got = warp_views_sum(feats, i, w)
+        torch.cuda.synchronize()
+        ref = warp_views_sum_ref(feats, i, w)
+        check(got.dtype == torch.float32 and got.shape == ref.shape == (feats.shape[0], N, feats.shape[-1]),
+              f"{name}: shape/dtype")
+        if blind is not None:
+            hold(f"{name}, the blind frame", got[blind], ref[blind], "zero")
+        errs[name] = hold(name, got, ref, rule)
+
+    compare("warp_views_sum bf16 B=16 C=128", bf, idx, wts)
+    compare("warp_views_sum f32 B=16 C=128", f32, idx, wts)
+    compare("warp_views_sum bf16 B=2 C=128 (training)", bf[:2].contiguous(), idx[:2].contiguous(), wts[:2].contiguous())
+    compare("warp_views_sum f32 B=2 C=128", f32[:2].contiguous(), idx[:2].contiguous(), wts[:2].contiguous())
+    compare("warp_views_sum bf16 B=1 C=128 (batch 1)", bf[:1].contiguous(), idx[:1].contiguous(), wts[:1].contiguous())
+    for Cr in (100, 13):
+        compare(f"warp_views_sum ragged C={Cr} bf16", bf[:2, ..., :Cr].contiguous(), idx[:2].contiguous(), wts[:2].contiguous())
+        compare(f"warp_views_sum ragged C={Cr} f32", f32[:2, ..., :Cr].contiguous(), idx[:2].contiguous(), wts[:2].contiguous())
+    # a frame none of whose views sees a cell, its maps poisoned: exact zeros
+    blind_w = wts[:4].clone()
+    blind_w[1] = 0.0
+    poisoned = bf[:4].clone()
+    poisoned[1] = 1e6
+    compare("warp_views_sum frame 1 blind and poisoned, bf16", poisoned, idx[:4].contiguous(), blind_w, blind=1)
+    compare("warp_views_sum frame 1 blind and poisoned, f32", poisoned.float(), idx[:4].contiguous(), blind_w, blind=1)
+    bad = coords[:2].clone()
+    bad[:, :, ::97, 0] = float("nan")
+    bad[:, :, 5::89, 1] = float("inf")
+    bad[:, :, 7::101] = -float("inf")
+    bidx, bwts = precompute_warp_lut(bad, (34, 60))
+    compare("warp_views_sum non-finite coords f32", f32[:2].contiguous(), bidx, bwts)
+    compare("warp_views_sum non-finite coords bf16", bf[:2].contiguous(), bidx, bwts)
+
+    def measure(feats, i, w, err_key):
+        Bm = feats.shape[0]
+        nz = w != 0
+        nnz = int(nz.sum())
+        rows_g = torch.arange(Bm * V, device=dev).reshape(Bm, V, 1, 1) * P + i
+        rows = torch.unique(rows_g[nz]).numel()
+        ms = cuda_ms(warp_views_sum, feats, i, w, warmup=3, iters=20)
+        plain_ms = cuda_ms(warp_views_sum_ref, feats, i, w, warmup=1, iters=3)
+        # the library yardstick: one sparse product with the block-diagonal
+        # CSR of the taps, [B*N, B*V*P] @ [B*V*P, C]
+        row_of = torch.arange(Bm * N, device=dev).reshape(Bm, 1, N, 1).expand(Bm, V, N, 4)[nz]
+        coo = torch.sparse_coo_tensor(torch.stack([row_of, rows_g[nz].long()]), w[nz], (Bm * N, Bm * V * P)).coalesce()
+        csr = coo.to(feats.dtype).to_sparse_csr()
+        dense = feats.reshape(Bm * V * P, C)
+        lib_out = torch.sparse.mm(csr, dense).reshape(Bm, N, C)
+        lib_err = float((lib_out.float() - warp_views_sum_ref(feats, i, w)).abs().max())
+        library_ms = cuda_ms(torch.sparse.mm, csr, dense, warmup=1, iters=5)
+        del coo, csr, lib_out
+        nbytes = rows * C * feats.element_size() + Bm * N * C * 4 + 2 * Bm * V * N * 4 * 4
+        flops = 2 * nnz * C
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[feats.dtype] * 1e3
+        shape = f"B={Bm} V={V} P={P} N={N} C={C} {str(feats.dtype).split('.')[-1]}"
+        reading = {
+            "shape": shape, "max_abs_err": errs[err_key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        }
+        log(f"[perframe-kernel] warp_views_sum {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms(sparse.mm, block-diagonal CSR of the taps)={library_ms:.4f} (library max_abs_err {lib_err:.3e}) "
+            f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}: {nbytes / 1e6:.1f} MB = {rows} source rows read "
+            f"once + f32 out + LUT {2 * Bm * V * N * 16 / 1e6:.1f} MB; {flops / 1e9:.2f} GFLOP over {nnz} live taps of "
+            f"{w.numel()}) roofline_share={reading['bound_ms'] / ms:.3f}")
+        return reading
+
+    two = tuple(t[:2].contiguous() for t in (bf, idx, wts))
+    readings = [
+        measure(bf, idx, wts, "warp_views_sum bf16 B=16 C=128"),
+        measure(*two, "warp_views_sum bf16 B=2 C=128 (training)"),
+        measure(f32, idx, wts, "warp_views_sum f32 B=16 C=128"),
+    ]
+    first = readings[0]
+    return {
+        "name": "warp_views_sum", "route": "cuda", "source": VIEWS_SRC, "replaces": f"{WARP_TPU}:1391",
+        "launches": None, **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": first["shape"], "other_shapes": readings[1:],
+    }
+
+
+def ablation_phase(dev):
+    """The ablation variants of the warp kernel at the flagship serving
+    shape (K = 2,048), bf16 and f32: each against its plain version, 'full'
+    bit-equal to warp_tiles, then the four times side by side (the
+    attribution run, whose launches are the entry's count) with
+    torch.sparse.mm on each variant's taps as the library yardstick.
+    Returns the entry of the TPU script's _resident_variant."""
+    from vsta_tpu_torch.ops.warp import precompute_warp_lut
+    from vsta_tpu_torch.ops import warp_cuda as wc
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    V, P, K = 7, 34 * 60, WARP_K
+    coords = flagship_lut(dev)
+    N = coords.shape[1]
+    idx, wts = precompute_warp_lut(coords, (34, 60))
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = torch.randn((V, P, K), generator=g, device=dev)
+    bf = f32.to(torch.bfloat16)
+    worst = 0.0
+    for feats, out_dtype, rule in ((bf, torch.bfloat16, "bf16"), (f32, torch.float32, "f32")):
+        tag = str(out_dtype).split(".")[-1]
+        for variant in wc.VARIANTS:
+            got = wc.warp_tiles_variant(feats, idx, wts, variant, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            ref = wc.warp_tiles_variant_ref(feats, idx, wts, variant, out_dtype=out_dtype)
+            check(got.shape == ref.shape == (N, K) and got.dtype == out_dtype, f"{variant}: shape/dtype")
+            worst = max(worst, hold(f"warp_tiles_variant {variant} {tag} K={K}", got, ref, rule))
+        same = torch.equal(wc.warp_tiles_variant(feats, idx, wts, "full", out_dtype=out_dtype),
+                           wc.warp_tiles(feats, idx, wts, out_dtype=out_dtype))
+        log(f"[ablation] 'full' {tag} bit-equal to warp_tiles: {same}")
+        check(same, f"the 'full' variant differs from warp_tiles ({tag})")
+    try:
+        wc.warp_tiles_variant(bf, idx, wts, "no_sbuild", out_dtype=torch.bfloat16)
+        check(False, "an unknown variant was not refused")
+    except ValueError:
+        pass
+
+    # the attribution run: its launches are what the entry counts. Beside
+    # each variant that is a sparse product (all but no_gather) the library
+    # yardstick on the same inputs: torch.sparse.mm with the CSR of the
+    # taps, its values or columns changed as the variant changes them
+    wc.warp_tiles_variant.launches = 0
+    times, library, lib_err = {}, {}, 0.0
+    as_sparse = {"full": (idx, wts), "const_weights": (idx, torch.full_like(wts, 0.25)), "row0": (torch.zeros_like(idx), wts)}
+    for feats, out_dtype in ((bf, torch.bfloat16), (f32, torch.float32)):
+        tag = str(out_dtype).split(".")[-1]
+        times[tag] = {v: cuda_ms(wc.warp_tiles_variant, feats, idx, wts, v, out_dtype=out_dtype, warmup=3, iters=30)
+                      for v in wc.VARIANTS}
+        times[tag]["warp_tiles"] = cuda_ms(wc.warp_tiles, feats, idx, wts, out_dtype=out_dtype, warmup=3, iters=30)
+        library[tag] = {"no_gather": None}
+        dense = feats.reshape(V * P, K)
+        for variant, (i, w) in as_sparse.items():
+            csr = shared_taps_coo(i, w, P).to(feats.dtype).to_sparse_csr()
+            ref = wc.warp_tiles_variant_ref(feats, idx, wts, variant, out_dtype=torch.float32)
+            lib_err = max(lib_err, float((torch.sparse.mm(csr, dense).float() - ref).abs().max() / ref.abs().max()))
+            library[tag][variant] = cuda_ms(torch.sparse.mm, csr, dense, warmup=2, iters=10)
+            del csr, ref
+    launches = wc.warp_tiles_variant.launches
+    check(launches == 2 * len(wc.VARIANTS) * 33, f"ablation launches {launches}")
+    live, taps = int((wts != 0).sum()), wts.numel()
+    for tag, t in times.items():
+        log(f"[ablation] K={K} {tag}, ms a launch: " + json.dumps({k: round(v, 4) for k, v in t.items()})
+            + f" ({live} live taps of {taps}: const_weights gathers them all; row0 keeps the LUT walk and the "
+              f"weights but reads one cached row a view; no_gather reads no map); library_ms(sparse.mm, the "
+              f"variant's CSR): " + json.dumps({k: v and round(v, 4) for k, v in library[tag].items()}))
+    log(f"[ablation] sparse.mm against the variants' plain versions: max_abs_err / max|ref| = {lib_err:.3e}")
+    plain_ms = cuda_ms(wc.warp_tiles_variant_ref, bf, idx, wts, "full", out_dtype=torch.bfloat16, warmup=1, iters=5)
+    rows = torch.unique((torch.arange(V, device=dev)[:, None, None] * P + idx)[wts != 0]).numel()
+    nbytes = rows * K * 2 + N * K * 2 + V * N * 4 * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * live * K / PEAK_FLOPS_PER_S[torch.bfloat16] * 1e3
+    return {
+        "name": "warp_tiles_variant", "route": "cuda", "source": WARP_SRC, "replaces": "scripts/roofline_warp.py:190",
+        "launches": launches, "max_abs_err": worst, "ms": times["bfloat16"]["full"], "plain_ms": plain_ms,
+        # ms, plain_ms, bound_ms and library_ms are the 'full' variant's, bf16: the function warp_tiles computes
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library["bfloat16"]["full"], "variants_ms": times, "variants_library_ms": library,
+    }
 
 
 def deform_taps(dev, B, stride, seed=2):
@@ -280,12 +508,25 @@ def grouped_phase(dev):
     errs = {}
     bf = torch.bfloat16
 
-    def cases(name, maps, gout, i, w, rule):
+    def cases(name, maps, gout, i, w, rule, one_sided=False):
         """All four kernels on one set of inputs against their plain
         versions; scatter_taps_grouped's dmaps against the fused kernel's
-        bit for bit."""
+        bit for bit. ``one_sided``: sample_tiles_grouped and
+        scatter_taps_grouped alone (a shape only they are given, whose
+        plain d_wts would not fit beside it)."""
         maps, gout = maps.contiguous(), gout.contiguous()
         out = gc.sample_tiles_grouped(maps, i, w)
+        if one_sided:
+            dm3 = gc.scatter_taps_grouped(gout, i, w, maps.shape[1])
+            torch.cuda.synchronize()
+            ref_out = gc.sample_tiles_grouped_ref(maps, i, w)
+            check(out.dtype == maps.dtype and out.shape == ref_out.shape, f"{name}: sample shape/dtype")
+            errs[f"sample {name}"] = hold(f"sample_tiles_grouped {name}", out, ref_out, rule)
+            del out, ref_out
+            ref_dm = gc.scatter_taps_grouped_ref(gout, i, w, maps.shape[1])
+            check(dm3.shape == ref_dm.shape and dm3.dtype == torch.float32, f"{name}: dmaps shape/dtype")
+            errs[f"dmaps3 {name}"] = hold(f"scatter_taps_grouped {name}", dm3, ref_dm, "f32")
+            return
         dm, dw = gc.scatter_tapdot_grouped(maps, gout, i, w)
         dm3 = gc.scatter_taps_grouped(gout, i, w, maps.shape[1])
         dw5 = gc.taps_dot_grouped(maps, gout, i)
@@ -337,6 +578,62 @@ def grouped_phase(dev):
             cases(f"deform {label} K=32 f32", d_maps, d_gout, d_idx, d_wts, "f32")
         deform[label] = (d_maps.to(bf), d_gout.to(bf), d_idx, d_wts)
         del d_maps, d_gout
+
+    # the per-frame backward's shapes: one group a (frame, view) at batch 2
+    # (training) and 16 (the deform query warp in serving), K = 128
+    perframe = {}
+    for label, Bp in (("G=14", 2), ("G=112", 16)):
+        p_anchors, p_wts = anchored_taps(perframe_coords(dev, Bp).reshape(Bp * 7, N, 2), (Hf, Wf))
+        p_idx, p_wts = flat_taps(p_anchors, Wf + 1), p_wts.contiguous()
+        gen = torch.Generator(device=dev).manual_seed(5)
+        p_maps = torch.randn((Bp * 7, P, 128), generator=gen, device=dev)
+        p_gout = torch.randn((Bp * 7, N, 128), generator=gen, device=dev)
+        cases(f"per-frame {label} N={N} K=128 bf16", p_maps.to(bf), p_gout.to(bf), p_idx, p_wts, "bf16")
+        if Bp == 2:
+            cases(f"per-frame {label} N={N} K=128 f32", p_maps, p_gout, p_idx, p_wts, "f32")
+        perframe[label] = (p_maps.to(bf), p_gout.to(bf), p_idx, p_wts)
+        del p_maps, p_gout
+
+    # the unfused fusions' shapes: warp_views on the applied encoder
+    # projection, K = FEAT_DIM 1280. Training (batch 2): G = 14, rows 4 and 3
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p_idx, p_wts = perframe["G=14"][2:]
+    wide14 = (torch.randn((14, P, 1280), generator=gen, device=dev).to(bf),
+              torch.randn((14, N, 1280), generator=gen, device=dev).to(bf), p_idx, p_wts)
+    cases(f"unfused G=14 N={N} K=1280 bf16", *wide14, "bf16", one_sided=True)
+    # serving (batch 16): G = 112, an output of 6.2e9 elements, the one
+    # launch of the port whose offsets pass 2**32. The kernel runs once on
+    # the whole input; its plain version, which would not fit, on 8 groups
+    # at a time, every group held
+    p_idx, p_wts = perframe["G=112"][2:]
+    w_maps = torch.randn((112, P, 1280), generator=gen, device=dev).to(bf)
+    out = gc.sample_tiles_grouped(w_maps, p_idx, p_wts)
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (112, N, 1280) and out.dtype == bf and out.numel() > 2**32, "unfused G=112: shape/dtype")
+    first_past = 2**32 // (N * 1280) + 1  # the first group that starts past 2**32 elements
+    worst, worst_past, bad = 0.0, 0.0, []
+    for g0 in range(0, 112, 8):
+        ref = gc.sample_tiles_grouped_ref(w_maps[g0:g0 + 8], p_idx[g0:g0 + 8], p_wts[g0:g0 + 8])
+        diff = (out[g0:g0 + 8].float() - ref.float()).abs()
+        per_group = diff.amax(dim=(1, 2))
+        ok = (diff <= bf16_ulp(ref) + 1e-6 * ref.float().abs().max()).all(dim=2).all(dim=1)
+        bad += [g0 + j for j in range(8) if not bool(ok[j])]
+        worst = max(worst, float(per_group.max()))
+        worst_past = max([worst_past] + [float(per_group[j]) for j in range(8) if g0 + j >= first_past])
+        del ref, diff
+    log(f"[kernel] sample_tiles_grouped unfused G=112 N={N} K=1280 bf16 ({out.numel()} elements out), all 112 groups "
+        f"against the plain version 8 at a time: max_abs_err={worst:.3e}; groups {first_past}..111, which start past "
+        f"2**32 elements: {worst_past:.3e} (<= 1 bf16 ulp of |ref| + 1e-6*max|ref|) {'ok' if not bad else 'FAIL'}")
+    check(not bad, f"sample_tiles_grouped at G=112 K=1280 disagrees with the plain version in groups {bad}")
+    del out
+    wide_ms = cuda_ms(gc.sample_tiles_grouped, w_maps, p_idx, p_wts, warmup=1, iters=3)
+    rows_read = torch.unique(torch.arange(112, device=dev)[:, None, None] * P + p_idx).numel()
+    wide_bytes = rows_read * 1280 * 2 + 112 * N * 1280 * 2 + 2 * 112 * N * 4 * 4
+    log(f"[grouped] sample_tiles_grouped G=112 P={P} N={N} K=1280 bfloat16: ms={wide_ms:.4f} "
+        f"bound_ms={wide_bytes / HBM_BYTES_PER_S * 1e3:.4f} (bytes: {wide_bytes / 1e6:.1f} MB); plain_ms and library_ms "
+        f"not measured (neither fits beside the 12.4 GB output)")
+    del w_maps
+    torch.cuda.empty_cache()
 
     def measure(kind, maps, gout, i, w, err_key, library=True):
         """One kernel at one shape (bf16): its time, the plain version's,
@@ -426,15 +723,20 @@ def grouped_phase(dev):
     flag = (maps32[..., :K].to(bf).contiguous(), gout32[..., :K].to(bf).contiguous(), idx, wts)
     query = (maps32.to(bf).contiguous(), gout32.to(bf).contiguous(), idx, wts)
     s4, s4b16, s1 = deform["G=56 N=10800"], deform["G=448 N=10800"], deform["G=56 N=172800"]
+    pf14, pf112 = perframe["G=14"], perframe["G=112"]
     # each kernel's entry is at a shape its main path gives it; the others follow
     plan = (
         ("scatter_taps_grouped", 686, [
             (query, "dmaps3 bf16 K=128", True), (flag, f"dmaps3 bf16 K={K}", True),
-            (s1, "dmaps3 deform G=56 N=172800 K=32 bf16", True), (s4, "dmaps3 deform G=56 N=10800 K=32 bf16", False)]),
+            (s1, "dmaps3 deform G=56 N=172800 K=32 bf16", True), (s4, "dmaps3 deform G=56 N=10800 K=32 bf16", False),
+            (pf14, f"dmaps3 per-frame G=14 N={N} K=128 bf16", True), (pf112, f"dmaps3 per-frame G=112 N={N} K=128 bf16", False),
+            (wide14, f"dmaps3 unfused G=14 N={N} K=1280 bf16", False)]),
         ("sample_tiles_grouped", 955, [
             (flag, f"sample bf16 K={K}", True), (query, "sample bf16 K=128", False),
             (s4, "sample deform G=56 N=10800 K=32 bf16", True), (s4b16, "sample deform G=448 N=10800 K=32 bf16", False),
-            (s1, "sample deform G=56 N=172800 K=32 bf16", False)]),
+            (s1, "sample deform G=56 N=172800 K=32 bf16", False),
+            (pf14, f"sample per-frame G=14 N={N} K=128 bf16", True), (pf112, f"sample per-frame G=112 N={N} K=128 bf16", False),
+            (wide14, f"sample unfused G=14 N={N} K=1280 bf16", False)]),
         ("taps_dot_grouped", 1125, [
             (s1, "d_wts5 deform G=56 N=172800 K=32 bf16", True), (s4, "d_wts5 deform G=56 N=10800 K=32 bf16", True),
             (query, "d_wts5 bf16 K=128", True)]),
@@ -529,7 +831,6 @@ def deform_serving_phase(dev, cfg_path=DEFORM):
     from vsta_tpu_torch.convert import init_state_dict
     from vsta_tpu_torch.geometry import bev_sample_coords_with_depth, ground_grid
     from vsta_tpu_torch.models.bevnet import positional_encoding
-    from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.decode import decode_detections
     from vsta_tpu_torch.serving import build_serving_fn
     from vsta_tpu_torch.utils.timing import cuda_ms
@@ -537,14 +838,7 @@ def deform_serving_phase(dev, cfg_path=DEFORM):
     cfg = load_config(str(cfg_path))
     (H, W), (Hb, Wb) = cfg.data.img_size, cfg.model.bev_size
     t0 = time.perf_counter()
-    state = init_state_dict(cfg, seed=0)
-    # the sampling heads start at zero kernels, where the sampling does not
-    # depend on the query: give them small random ones (offsets of about a
-    # pixel) so that the learned path is what is served
-    g = torch.Generator().manual_seed(7)
-    for name, scale in (("offsets", 0.05), ("attn", 0.05)):
-        w = state[f"deform_fusion.{name}.weight"]
-        state[f"deform_fusion.{name}.weight"] = scale * torch.randn(w.shape, generator=g)
+    state = wake_sampling_heads(init_state_dict(cfg, seed=0))
     serve = build_serving_fn(cfg, state, device="cuda")
     model = serve.model
     log(f"[deform-serve] model built: {sum(v.numel() for v in state.values())} weights, "
@@ -586,23 +880,7 @@ def deform_serving_phase(dev, cfg_path=DEFORM):
             log(f"[deform-serve] layers B={B} (CUDA events, ms): " + json.dumps(layers))
     profile_request(serve, inputs, "one deform B=16 request")
 
-    # the same requests on the plain versions: the sampler rounds once on
-    # both sides, so the heatmaps may differ by no more than 2 bf16 ulps
-    for B in (16, 1):
-        args = tuple(a[:B] for a in inputs)
-        got = serve(*args)["heatmap"]
-        before = [c.launches for c in counters]
-        model.grouped = gc.PLAIN
-        try:
-            ref = serve(*args)["heatmap"]
-        finally:
-            model.grouped = gc.KERNELS
-        check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
-        diff = (got - ref).abs()
-        ok = bool((diff <= 2 * bf16_ulp(ref)).all())
-        log(f"[deform-serve] bf16 B={B} heatmap, kernels vs plain versions: max_abs_diff={float(diff.max()):.3e} "
-            f"(<= 2 bf16 ulps of |ref|) {'ok' if ok else 'FAIL'}")
-        check(ok, f"deform bf16 heatmap at batch {B} with the kernels disagrees with the plain versions")
+    heatmaps_kernels_vs_plain(serve, inputs, counters, "deform-serve")
     return launches
 
 
@@ -618,6 +896,21 @@ def warp_tiles_counter():
     return warp_tiles
 
 
+def warp_views_sum_counter():
+    from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum
+
+    return warp_views_sum
+
+
+def all_counters():
+    return (warp_tiles_counter(), warp_views_sum_counter()) + grouped_counters()
+
+
+def with_model_fields(cfg, **fields):
+    """``cfg`` with fields of its MODEL section replaced in memory."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **fields))
+
+
 def reset(counters) -> None:
     for c in counters:
         c.launches = 0
@@ -627,7 +920,7 @@ def serving_phase(dev, cfg_path=FLAGSHIP):
     from vsta_tpu_torch.config import load_config
     from vsta_tpu_torch.convert import init_state_dict
     from vsta_tpu_torch.ops.decode import decode_detections
-    from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles
     from vsta_tpu_torch.serving import build_serving_fn
     from vsta_tpu_torch.utils.timing import cuda_ms
 
@@ -688,23 +981,192 @@ def serving_phase(dev, cfg_path=FLAGSHIP):
             log(f"[serve] layers B={B} (CUDA events, ms): " + json.dumps(layers))
     profile_request(serve, (frames, K16, Rt16))
 
-    # the same bf16 requests with the warp swapped for its plain version:
-    # both accumulate in f32 and round once, so the heatmaps may differ by
-    # no more than 2 bf16 ulps of |ref|
-    for B in (16, 1):
-        args = (frames[:B], K16[:B], Rt16[:B])
-        before = warp_tiles.launches
-        serve.model.warp = warp_tiles_ref
-        ref = serve(*args)["heatmap"]
-        serve.model.warp = warp_tiles
-        check(warp_tiles.launches == before, "plain-version run launched the kernel")
+    heatmaps_kernels_vs_plain(serve, (frames, K16, Rt16), (warp_tiles,), "serve")
+    return launches
+
+
+def serve_inputs_perframe(cfg, B=16, seed=0):
+    """As :func:`serve_inputs`, with another calibration in every frame."""
+    frames, _, _ = serve_inputs(cfg, B, seed)
+    K, Rt = perframe_cameras(B, cfg.data.views, tuple(cfg.data.img_size))
+    return frames, K, Rt
+
+
+def wake_sampling_heads(state, seed=7, scale=0.05):
+    """Small random kernels for a deformable model's sampling heads, which
+    start at zero, where the sampling does not depend on the query."""
+    g = torch.Generator().manual_seed(seed)
+    for name in ("offsets", "attn"):
+        key = f"deform_fusion.{name}.weight"
+        if key in state:
+            state[key] = scale * torch.randn(state[key].shape, generator=g)
+    return state
+
+
+def heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(16, 1)):
+    """The same requests with every kernel and with every plain version:
+    both sum in f32 and round once, so the bf16 heatmaps may differ by no
+    more than 2 bf16 ulps of |ref|."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
+
+    model = serve.model
+    for B in batches:
+        args = tuple(a[:B] for a in inputs)
         got = serve(*args)["heatmap"]
+        before = [c.launches for c in counters]
+        model.warp, model.views_sum, model.grouped = warp_tiles_ref, warp_views_sum_ref, gc.PLAIN
+        try:
+            ref = serve(*args)["heatmap"]
+        finally:
+            model.warp, model.views_sum, model.grouped = warp_tiles, warp_views_sum, gc.KERNELS
+        check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
         diff = (got - ref).abs()
         ok = bool((diff <= 2 * bf16_ulp(ref)).all())
-        log(f"[serve] bf16 B={B} heatmap, kernel vs plain warp: max_abs_diff={float(diff.max()):.3e} "
+        log(f"[{label}] bf16 B={B} heatmap, kernels vs plain versions: max_abs_diff={float(diff.max()):.3e} "
             f"(<= 2 bf16 ulps of |ref|) {'ok' if ok else 'FAIL'}")
-        check(ok, f"bf16 heatmap at batch {B} with the kernel disagrees with the plain warp")
+        check(ok, f"{label}: bf16 heatmap at batch {B} with the kernels disagrees with the plain versions")
+
+
+def perframe_serving_phase(dev, cfg_path, family):
+    """``cfg_path`` with STATIC_CAMERAS false (one field replaced in
+    memory) served at full width with another calibration in every frame
+    (bf16, batch 16 and 1): latency, peak memory, launches a request
+    (concat: warp_views_sum once and warp_tiles never; deform_attn:
+    sample_tiles_grouped twice), the forward's parts with the LUT as its
+    own layer, the device's busy share, and the heatmaps with the kernels
+    against the plain versions. Returns the launches."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.geometry import bev_sample_coords_with_depth, ground_grid
+    from vsta_tpu_torch.models.bevnet import positional_encoding
+    from vsta_tpu_torch.ops.decode import decode_detections
+    from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps, precompute_warp_lut
+    from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum
+    from vsta_tpu_torch.serving import build_serving_fn
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    label = f"perframe-{family}"
+    cfg = with_model_fields(load_config(str(cfg_path)), static_cameras=False)
+    check(cfg.model.fusion == family, f"{cfg_path} is not {family}")
+    (H, W), (Hb, Wb) = cfg.data.img_size, cfg.model.bev_size
+    state = wake_sampling_heads(init_state_dict(cfg, seed=0))
+    serve = build_serving_fn(cfg, state, device="cuda")
+    model = serve.model
+    check(not model.static_cameras, "the model still shares frame 0's cameras")
+    inputs = serve_inputs_perframe(cfg)
+    check(float(np.abs(inputs[2][0] - inputs[2][1]).max()) > 0.1, "the frames share a calibration")
+    counters = all_counters()
+    reset(counters)
+    _, n16 = timed_requests(cfg, serve, inputs, 16, 3, 5, f"{family} per-frame cameras bf16")
+    _, n1 = timed_requests(cfg, serve, inputs, 1, 2, 5, f"{family} per-frame cameras bf16")
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"[{label}] {n16 + n1} requests, launches {json.dumps(launches)}")
+    a_request = {"warp_views_sum": 1} if family == "concat" else {"sample_tiles_grouped": 2}
+    check(launches == {c.__name__: a_request.get(c.__name__, 0) * (n16 + n1) for c in counters},
+          f"{label} launches {launches}")
+
+    # the forward's parts (CUDA events); the LUT is rebuilt every request
+    x, k, rt = (torch.as_tensor(a, device=dev) for a in inputs)
+    kw = dict(bounds=cfg.model.bev_bounds, conf_thresh=cfg.eval.conf_thresh,
+              nms_dist_m=cfg.eval.nms_dist_m, max_dets=cfg.eval.max_dets)
+    with torch.no_grad():
+        normed = (x.float() - 127.5) / 64.0
+        grid = ground_grid(Hb, Wb, cfg.model.bev_bounds, device=dev)
+        for B in (16, 1):
+            enc = model.encoder(normed[:B])
+            feats = enc[0] if family == "concat" else enc
+            Hf, Wf = feats.shape[2:4]
+            coords, depth_w = bev_sample_coords_with_depth(k[:B], rt[:B], (H, W), (Hf, Wf), grid)
+            outs = model(x[:B], k[:B], rt[:B])
+            layers = {
+                "encoder": cuda_ms(model.encoder, normed[:B], warmup=2, iters=5),
+                "coords": cuda_ms(bev_sample_coords_with_depth, k[:B], rt[:B], (H, W), (Hf, Wf), grid, warmup=2, iters=5),
+            }
+            if family == "concat":
+                idx, wts = precompute_warp_lut(coords.reshape(B, -1, Hb * Wb, 2), (Hf, Wf))
+                proj = torch.randn((B, cfg.data.views, Hf * Wf, cfg.model.bev_proj_ch), device=dev).to(model.dtype)
+                layers["lut"] = cuda_ms(precompute_warp_lut, coords, (Hf, Wf), warmup=2, iters=5)
+                layers["warp_fusion (projection, lut, kernel, bias)"] = cuda_ms(
+                    model._concat, *enc, coords, warmup=2, iters=5)
+                layers["warp_views_sum"] = cuda_ms(warp_views_sum, proj, idx, wts, warmup=2, iters=5)
+            else:
+                def taps(c):
+                    anchors, w = anchored_taps(c.reshape(-1, Hb * Wb, 2), (Hf, Wf))
+                    return flat_taps(anchors, Wf + 1), w
+
+                pos = positional_encoding(Hb, Wb, cfg.model.bev_bounds, device=dev)[None].expand(B, Hb, Wb, 2)
+                query = model.warped_query(feats, coords)
+                q_in = torch.cat([query, pos.to(query.dtype)], dim=-1)
+                layers["lut"] = cuda_ms(taps, coords, warmup=2, iters=5)
+                layers["query_warp (projection, lut, sampler, sum)"] = cuda_ms(model.warped_query, feats, coords, warmup=2, iters=5)
+                layers["deformable_fusion"] = cuda_ms(model.attention_residual, feats, coords, depth_w, q_in, warmup=2, iters=5)
+            layers["head"] = cuda_ms(model.detector, outs["bev_feat"].to(model.dtype), warmup=2, iters=5)
+            layers["decode"] = cuda_ms(decode_detections, outs["heatmap"], outs["offset"], outs["size"],
+                                       warmup=2, iters=10, **kw)
+            layers["forward"] = cuda_ms(model, x[:B], k[:B], rt[:B], warmup=1, iters=5)
+            log(f"[{label}] layers B={B} (CUDA events, ms): " + json.dumps({a: round(b, 4) for a, b in layers.items()}))
+    profile_request(serve, inputs, f"one {family} per-frame B=16 request")
+    heatmaps_kernels_vs_plain(serve, inputs, counters, label)
     return launches
+
+
+def fusion_serving_phase(dev, cfg_path=FLAGSHIP):
+    """configs/wildtrack.yaml with FUSION max and attn under WARP_IMPL
+    gather (fields replaced in memory), served at full width, bf16, batch
+    16: every view's BEV map through warp_views (one launch of
+    sample_tiles_grouped a request, G = 112, K = FEAT_DIM), then the fusion
+    and bev_proj. Latency, peak memory, launches, the forward's parts, and
+    the heatmap with the kernel against its plain version at batch 1 (the
+    plain sampler at batch 16 would hold several copies of the per-view
+    maps; the kernel at that shape, G = 112 and K = 1,280, is held group
+    by group in grouped_phase). Returns the launches."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.geometry import bev_sample_coords_with_depth, ground_grid
+    from vsta_tpu_torch.serving import build_serving_fn
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    base = load_config(str(cfg_path))
+    (H, W), (Hb, Wb) = base.data.img_size, base.model.bev_size
+    inputs = serve_inputs(base)
+    x, k, rt = (torch.as_tensor(a, device=dev) for a in inputs)
+    counters = all_counters()
+    total = {c.__name__: 0 for c in counters}
+    for fusion in ("max", "attn"):
+        label = f"fusion-{fusion}"
+        cfg = with_model_fields(base, fusion=fusion, warp_impl="gather")
+        serve = build_serving_fn(cfg, init_state_dict(cfg, seed=0), device="cuda")
+        model = serve.model
+        reset(counters)
+        _, n16 = timed_requests(cfg, serve, inputs, 16, 2, 3, f"FUSION {fusion} bf16")
+        _, n1 = timed_requests(cfg, serve, inputs, 1, 1, 3, f"FUSION {fusion} bf16")
+        launches = {c.__name__: c.launches for c in counters}
+        log(f"[{label}] {n16 + n1} requests, launches {json.dumps(launches)}")
+        check(launches == {c.__name__: (n16 + n1 if c.__name__ == "sample_tiles_grouped" else 0) for c in counters},
+              f"{label} launches {launches}")
+        total = {a: total[a] + launches[a] for a in total}
+        with torch.no_grad():
+            normed = (x.float() - 127.5) / 64.0
+            feats = model.encoder(normed)
+            Hf, Wf = feats.shape[2:4]
+            grid = ground_grid(Hb, Wb, cfg.model.bev_bounds, device=dev)
+            coords, _ = bev_sample_coords_with_depth(k[0], rt[0], (H, W), (Hf, Wf), grid)
+            layers = {
+                "forward": cuda_ms(model, x, k, rt, warmup=1, iters=3),
+                "encoder": cuda_ms(model.encoder, normed, warmup=1, iters=3),
+                "warp_views": cuda_ms(model.per_view, feats, coords, warmup=1, iters=3),
+            }
+            per_view = model.per_view(feats, coords)
+            layers["fusion + bev_proj"] = cuda_ms(model.fuse_views, per_view, warmup=1, iters=3)
+            log(f"[{label}] layers B=16 (CUDA events, ms): " + json.dumps({a: round(b, 4) for a, b in layers.items()})
+                + f"; per-view maps {tuple(per_view.shape)} {per_view.dtype}, {per_view.numel() * per_view.element_size() / 2**30:.2f} GiB")
+            del per_view, feats
+        heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(1,))
+        del serve, model
+        torch.cuda.empty_cache()
+    return total
 
 
 def profile_request(fn, args, label=None) -> None:
@@ -772,7 +1234,16 @@ def grad_distance(a, b):
                   reverse=True)
 
 
-def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=True, named=(), extra=None):
+def train_batch_perframe(cfg, B, seed):
+    """As :func:`train_batch`, with another calibration in every frame
+    (and in every batch)."""
+    batch = train_batch(cfg, B, seed)
+    batch["K"], batch["Rt"] = perframe_cameras(B, cfg.data.views, tuple(cfg.data.img_size), seed=100 + seed)
+    return batch
+
+
+def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=True, named=(), extra=None,
+                   batch_fn=train_batch):
     """Train-step calls of ``cfg`` on the card: time a call, its split,
     peak memory; each kernel's launches a call against ``per_call``;
     parameters that move on every ACCUM_STEPS-th call and BatchNorm
@@ -780,9 +1251,12 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
     against the same call on their plain versions, the parameters in
     ``named`` on a line of their own. ``extra(grads_with, g_kernel,
     spread)`` runs a path's own check (``spread``: the worst distance
-    between two runs with the kernels). Returns the launches."""
+    between two runs with the kernels). ``per_call`` names the kernels a
+    call launches (the others: never); ``batch_fn`` makes the batches.
+    Returns the launches."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
     from vsta_tpu_torch.training.state import (
         apply_gradients, batch_to_device, create_state, gradients, loss_fn, make_train_step,
     )
@@ -794,14 +1268,14 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
     log(f"[{label}] state built: {time.perf_counter() - t0:.1f}s, batch {B}, ACCUM_STEPS {cfg.train.accum_steps}, "
         f"compute dtype {model.dtype}, {sum(p.numel() for p in model.parameters())} parameters")
     train_step = make_train_step(cfg)
-    batches = [train_batch(cfg, B, seed) for seed in range(4)]
+    batches = [batch_fn(cfg, B, seed) for seed in range(4)]
     stats = ["encoder.backbone.stem_bn.running_mean", "encoder.backbone.stages.6.0.project_bn.running_var"]
 
     def snapshot(names):
         sd = model.state_dict()
         return {k: sd[k].clone() for k in names}
 
-    counters = (warp_tiles,) + grouped_counters()
+    counters = all_counters()
     reset(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -829,8 +1303,8 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
     log(f"[{label}] parameters moved on every {cfg.train.accum_steps}nd call only, BatchNorm statistics on every call; "
         f"launches {json.dumps(launches)}")
     for name, n in launches.items():
-        check(n == per_call[name] * (warm + timed),
-              f"{label}: {name} launched {n} times in {warm + timed} train-step calls, expected {per_call[name]} a call")
+        check(n == per_call.get(name, 0) * (warm + timed),
+              f"{label}: {name} launched {n} times in {warm + timed} train-step calls, expected {per_call.get(name, 0)} a call")
 
     # where a call's time goes (CUDA events around its three parts)
     split = {"forward+loss": [], "backward": [], "optimizer": []}
@@ -858,17 +1332,17 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
     # with all of them on their plain versions (same weights, same batch)
     b = batch_to_device(batches[0], dev)
 
-    def grads_with(warp, grouped):
-        model.warp, model.grouped = warp, grouped
+    def grads_with(warp, grouped, views_sum=warp_views_sum):
+        model.warp, model.grouped, model.views_sum = warp, grouped, views_sum
         try:
             return gradients(model, loss_fn(cfg, model, b)["total_loss"])
         finally:
-            model.warp, model.grouped = warp_tiles, gc.KERNELS
+            model.warp, model.grouped, model.views_sum = warp_tiles, gc.KERNELS, warp_views_sum
 
     g_kernel = grads_with(warp_tiles, gc.KERNELS)
     g_again = grads_with(warp_tiles, gc.KERNELS)
     before = [c.launches for c in counters]
-    g_plain = grads_with(warp_tiles_ref, gc.PLAIN)
+    g_plain = grads_with(warp_tiles_ref, gc.PLAIN, warp_views_sum_ref)
     check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
     spread = grad_distance(g_again, g_kernel)
     dist = grad_distance(g_kernel, g_plain)
@@ -963,6 +1437,48 @@ def deform_training_phase(dev, cfg_path=DEFORM):
     return {k: total[k] + stride1[k] for k in total}
 
 
+def perframe_training_phase(dev):
+    """Both configs with STATIC_CAMERAS false (one field replaced in
+    memory) and another calibration in every frame, as they stand
+    otherwise (batch 2, ACCUM_STEPS 2, bf16). Concat: warp_views_sum once
+    forward, then the VJP of the per-batch fused_warp_proj, the grouped
+    sampler at G = 14 (sample_tiles_grouped and scatter_taps_grouped once
+    each). Deform: the query warp at G = 14 and the sampler. Returns both
+    runs' launches, added up."""
+    from vsta_tpu_torch.config import load_config
+
+    concat = training_phase(
+        dev, with_model_fields(load_config(str(FLAGSHIP)), static_cameras=False), "perframe-train",
+        per_call={"warp_views_sum": 1, "sample_tiles_grouped": 1, "scatter_taps_grouped": 1},
+        watched=["view_proj", "detector.stem0.weight", "encoder.backbone.stages.6.0.expand_conv.weight"],
+        warm=2, timed=5, batch_fn=train_batch_perframe,
+    )
+    deform = training_phase(
+        dev, with_model_fields(load_config(str(DEFORM)), static_cameras=False), "perframe-deform-train",
+        per_call={"sample_tiles_grouped": 2, "scatter_taps_grouped": 1, "scatter_tapdot_grouped": 1},
+        watched=["query_proj", "deform_fusion.offsets.weight", "deform_fusion.value.weight", "encoder.proj.weight"],
+        named=["deform_fusion.offsets.weight", "deform_fusion.attn.weight"],
+        warm=2, timed=5, profile=False, batch_fn=train_batch_perframe,
+    )
+    return {k: concat[k] + deform[k] for k in concat}
+
+
+def fusion_training_phase(dev):
+    """configs/wildtrack.yaml with FUSION attn under WARP_IMPL gather
+    (fields replaced in memory; batch 2, ACCUM_STEPS 2, bf16): warp_views
+    forward (sample_tiles_grouped at G = 14, K = FEAT_DIM) and its maps'
+    gradient backward (scatter_taps_grouped), once a call each."""
+    from vsta_tpu_torch.config import load_config
+
+    cfg = with_model_fields(load_config(str(FLAGSHIP)), fusion="attn", warp_impl="gather")
+    return training_phase(
+        dev, cfg, "fusion-attn-train",
+        per_call={"sample_tiles_grouped": 1, "scatter_taps_grouped": 1},
+        watched=["bev_proj.weight", "attn_fusion.hidden.weight", "attn_fusion.logit.bias", "encoder.proj.weight"],
+        warm=1, timed=4, profile=False,
+    )
+
+
 SMALL_DEFORM = {"FUSION": "deform_attn", "WARP_IMPL": "fused", "ATTN_HEADS": 2, "ATTN_POINTS": 2, "ATTN_STRIDE": 2}
 
 
@@ -972,13 +1488,25 @@ def small_state_dict(cfg, seed):
     query."""
     from vsta_tpu_torch.convert import init_state_dict
 
-    sd = init_state_dict(cfg, seed=seed)
-    g = torch.Generator().manual_seed(seed)
-    for name in ("offsets", "attn"):
-        key = f"deform_fusion.{name}.weight"
-        if key in sd:
-            sd[key] = 0.3 * torch.randn(sd[key].shape, generator=g)
-    return sd
+    return wake_sampling_heads(init_state_dict(cfg, seed=seed), seed=seed, scale=0.3)
+
+# the MODEL fields of the small f32 models, by family
+SMALL_FAMILIES = {
+    "concat": {},
+    "deform_attn": SMALL_DEFORM,
+    "concat per-frame": {"STATIC_CAMERAS": False},
+    "deform_attn per-frame": {**SMALL_DEFORM, "STATIC_CAMERAS": False},
+    "attn": {"FUSION": "attn", "WARP_IMPL": "gather"},
+    "max": {"FUSION": "max", "WARP_IMPL": "gather"},
+}
+
+
+def small_cameras(family, B, V, img_hw):
+    """Ring cameras for a small model: drawn per frame for a per-frame
+    family, else one ring shared by the batch."""
+    if "per-frame" in family:
+        return perframe_cameras(B, V, img_hw, seed=3, radius=(8.0, 12.0), height=(3.0, 5.0))
+    return perframe_cameras(B, V, img_hw, radius=(10.0, 10.0), height=(4.0, 4.0))
 
 
 def small_train_phase(dev, family="concat"):
@@ -990,13 +1518,14 @@ def small_train_phase(dev, family="concat"):
         "DATA": {"BATCH_SIZE": 2, "IMG_SIZE": [3, 64, 96], "VIEWS": 3},
         "MODEL": {"BACKBONE": "efficientnet_b0", "FEAT_DIM": 48, "BEV_SIZE": [32, 16, 48],
                   "BEV_BOUNDS": [-12.0, 12.0, -4.0, 4.0], "BEV_PROJ_CH": 48,
-                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas",
-                  **(SMALL_DEFORM if family == "deform_attn" else {})},
+                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas", **SMALL_FAMILIES[family]},
         "LOSS": {"MAX_OBJECTS": 16},
         "RUNTIME": {"USE_AMP": False},
     })
     sd = small_state_dict(cfg, seed=1)
     batch = train_batch(cfg, 2, seed=5)
+    if "per-frame" in family:
+        batch["K"], batch["Rt"] = small_cameras(family, 2, 3, (64, 96))
     out = {}
     for where in ("cpu", dev):
         state = create_state(cfg, sd, device=where, steps_per_epoch=10)
@@ -1022,23 +1551,19 @@ def small_train_phase(dev, family="concat"):
 def small_model_phase(dev, family="concat"):
     """A small f32 model on the card against the same model on the CPU."""
     from vsta_tpu_torch.config import from_dict
-    from vsta_tpu_torch.data.synthetic import make_ring_camera
     from vsta_tpu_torch.serving import build_serving_fn
 
     cfg = from_dict({
         "DATA": {"IMG_SIZE": [3, 64, 96], "VIEWS": 3},
         "MODEL": {"BACKBONE": "efficientnet_b0", "FEAT_DIM": 48, "BEV_SIZE": [32, 16, 48],
                   "BEV_BOUNDS": [-12.0, 12.0, -4.0, 4.0], "BEV_PROJ_CH": 32,
-                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas",
-                  **(SMALL_DEFORM if family == "deform_attn" else {})},
+                  "HEAD_MID1": 64, "HEAD_MID2": 32, "WARP_IMPL": "pallas", **SMALL_FAMILIES[family]},
         "RUNTIME": {"USE_AMP": False},
     })
     state = small_state_dict(cfg, seed=1)
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, (2, 3, 64, 96, 3), dtype=np.uint8)
-    Ks, Rts = zip(*(make_ring_camera(v, 3, radius=10.0, height=4.0, img_hw=(64, 96)) for v in range(3)))
-    K = np.broadcast_to(np.stack(Ks), (2, 3, 3, 3)).astype(np.float32)
-    Rt = np.broadcast_to(np.stack(Rts), (2, 3, 4, 4)).astype(np.float32)
+    K, Rt = small_cameras(family, 2, 3, (64, 96))
     cpu = build_serving_fn(cfg, state, device="cpu")(frames, K, Rt)
     gpu = build_serving_fn(cfg, state, device=dev)(frames, K, Rt)
     d = float((gpu["heatmap"].cpu() - cpu["heatmap"]).abs().max())
@@ -1072,6 +1597,8 @@ def main() -> int:
     t = time.perf_counter()
     entries = kernel_phase(dev)
     entries += grouped_phase(dev)
+    views_entry = perframe_kernel_phase(dev)
+    ablation_entry = ablation_phase(dev)
     log(f"[kernel] phases {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     serve_launches = serving_phase(dev)
@@ -1079,7 +1606,13 @@ def main() -> int:
     t = time.perf_counter()
     deform_serve = deform_serving_phase(dev)
     log(f"[deform-serve] phase {time.perf_counter() - t:.1f}s")
-    for family in ("concat", "deform_attn"):
+    t = time.perf_counter()
+    perframe_serve = [perframe_serving_phase(dev, FLAGSHIP, "concat"), perframe_serving_phase(dev, DEFORM, "deform_attn")]
+    log(f"[perframe-serve] phases {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    fusion_serve = fusion_serving_phase(dev)
+    log(f"[fusion-serve] phase {time.perf_counter() - t:.1f}s")
+    for family in SMALL_FAMILIES:
         small_model_phase(dev, family)
     t = time.perf_counter()
     train = flagship_training_phase(dev)
@@ -1087,22 +1620,34 @@ def main() -> int:
     t = time.perf_counter()
     deform_train = deform_training_phase(dev)
     log(f"[deform-train] phase {time.perf_counter() - t:.1f}s")
-    for family in ("concat", "deform_attn"):
+    t = time.perf_counter()
+    perframe_train = perframe_training_phase(dev)
+    log(f"[perframe-train] phases {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    fusion_train = fusion_training_phase(dev)
+    log(f"[fusion-train] phase {time.perf_counter() - t:.1f}s")
+    for family in ("concat", "deform_attn", "concat per-frame", "attn"):
         small_train_phase(dev, family)
-    # launches on the main paths, each path counted from 0 over its own
+    # launches on the model paths, each path counted from 0 over its own
     # run: flagship serving (both warp dispatches) and training, deform
-    # serving and training (ATTN_STRIDE 4 and 1)
-    grouped = {k: train[k] + deform_serve[k] + deform_train[k] for k in deform_serve if k != "warp_tiles"}
+    # serving and training (ATTN_STRIDE 4 and 1), both families with
+    # per-frame cameras, the max and attn fusions. The ablation variants
+    # are on no model path: their count is the attribution run's.
+    paths = [train, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train]
+    on_paths = {k: sum(path.get(k, 0) for path in paths) for k in train}
+    entries += [views_entry, ablation_entry]
     counts = {
         f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"],
         f"{WARP_TPU}:353": serve_launches["windowed"],
-        **{e["replaces"]: grouped[e["name"]] for e in entries if e["name"] in grouped},
+        **{e["replaces"]: on_paths[e["name"]] for e in entries if e["name"] in on_paths},
+        ablation_entry["replaces"]: ablation_entry["launches"],
     }
-    check(len(entries) == 6 and len(counts) == 6, "the kernels line lists six kernels")
+    check(len(entries) == 8 and len(counts) == 8, "the kernels line lists eight kernels")
     for entry in entries:
         entry["launches"] = counts[entry["replaces"]]
-        check(entry["launches"] > 0, f"{entry['name']} was not launched on a model path")
-    log("[launches] on the model paths: " + json.dumps({e["name"]: e["launches"] for e in entries}))
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
+    log("[launches] on the model paths (warp_tiles_variant: the attribution run): "
+        + json.dumps({e["name"]: e["launches"] for e in entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(line)

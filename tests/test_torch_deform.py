@@ -308,12 +308,17 @@ def test_init_state_dict_reproduces_the_sampling_heads_start():
 
 
 def test_from_config_accepts_deform_and_names_what_is_left():
+    """The family builds, with static and with per-frame cameras, beside
+    the unfused fusions; what is left to port are the other backbones and
+    the multi-scale OUT_INDEX."""
     assert BEVNet.from_config(tcfg.from_dict(_raw({}))).fusion == "deform_attn"
     for fusion in ("mean", "attn"):
-        with pytest.raises(NotImplementedError, match="Fusions"):
-            BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"FUSION": fusion}})))
-    with pytest.raises(NotImplementedError, match="Per-frame cameras"):
-        BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"STATIC_CAMERAS": False}})))
+        assert BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"FUSION": fusion}}))).fusion == fusion
+    assert not BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"STATIC_CAMERAS": False}}))).static_cameras
+    with pytest.raises(NotImplementedError, match="Other backbones"):
+        BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"BACKBONE": "resnet18"}})))
+    with pytest.raises(NotImplementedError, match="Multi-scale"):
+        BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"OUT_INDEX": [1, 2]}})))
 
 
 # -- the train step -------------------------------------------------------

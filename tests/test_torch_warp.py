@@ -209,8 +209,14 @@ def test_plain_fused_warp_proj_matches_jax(rng, C, Cout):
 
 
 def test_fused_warp_proj_cuda_rejects_per_frame_cameras():
+    """Per-frame coordinates [B, V, Hb, Wb, 2] now run (the dense warp,
+    held to the JAX package in test_torch_perframe.py); what is rejected
+    is a layout that is neither that nor the shared [V, Hb, Wb, 2]."""
     feats = torch.zeros(1, 2, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="Per-frame cameras"):
-        warp_cuda.fused_warp_proj_cuda(
-            feats, torch.zeros(1, 2, 3, 3, 2), torch.zeros(2, 3, 5), None, torch.float32
-        )
+    out = warp_cuda.fused_warp_proj_cuda(
+        feats, torch.zeros(1, 2, 3, 3, 2), torch.zeros(2, 3, 5), None, torch.float32
+    )
+    assert out.shape == (1, 3, 3, 5)
+    for bad in (torch.zeros(3, 3, 2), torch.zeros(2, 2, 3, 3, 2), torch.zeros(3, 3, 3, 2)):
+        with pytest.raises(ValueError, match="coords must be"):
+            warp_cuda.fused_warp_proj_cuda(feats, bad, torch.zeros(2, 3, 5), None, torch.float32)

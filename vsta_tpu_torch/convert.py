@@ -11,7 +11,12 @@ names:
 * ``view_proj`` [V, F, C_out] and ``view_proj_bias`` (concat), or
   ``query_proj`` and ``query_proj_bias`` (deform_attn), stay raw tensors;
 * the deformable fusion's ``Dense`` kernels [in, out] -> ``Linear``
-  weights [out, in].
+  weights [out, in]; likewise the two ``Dense`` layers of the attention
+  fusion (Flax names them ``AttentionFusion_0/Dense_0`` and ``Dense_1``)
+  and ``bev_proj``, a 1x1 ``Conv`` whose kernel [1, 1, C, C_out] becomes a
+  ``Linear`` weight [C_out, C]. ``SimpleFusion`` has no parameters.
+
+A top-level key of the params tree that the port does not know raises.
 
 :func:`params_from_flax` maps a ``params`` tree alone (or a gradient tree,
 which has its shape) and :func:`batch_stats_from_flax` a ``batch_stats``
@@ -77,6 +82,12 @@ def _mbconv(p: Optional[Mapping], s: Optional[Mapping], out: StateDict, name: st
         _conv(se["Conv_1"], out, f"{name}.se.expand")
 
 
+_TOP_LEVEL = {
+    "encoder", "detector", "view_proj", "view_proj_bias", "query_proj", "query_proj_bias",
+    "deform_fusion", "AttentionFusion_0", "bev_proj",
+}
+
+
 def _from_flax(params: Optional[Mapping], stats: Optional[Mapping]) -> StateDict:
     """The port's names for a params tree, a batch_stats tree, or both."""
     out: StateDict = {}
@@ -91,13 +102,23 @@ def _from_flax(params: Optional[Mapping], stats: Optional[Mapping]) -> StateDict
             _mbconv(bb and bb[key], bb_s and bb_s[key], out, f"encoder.backbone.stages.{si}.{r}")
     if params is None:
         return out
+    unknown = sorted(set(params) - _TOP_LEVEL)
+    if unknown:
+        raise KeyError(f"params tree has keys the port does not map: {unknown}")
     _conv(params["encoder"]["proj"], out, "encoder.proj")
-    fusion = "query" if "query_proj" in params else "view"
-    out[f"{fusion}_proj"] = _t(params[f"{fusion}_proj"])
-    out[f"{fusion}_proj_bias"] = _t(params[f"{fusion}_proj_bias"])
-    if fusion == "query":
+    for fusion in ("view", "query"):
+        if f"{fusion}_proj" in params:
+            out[f"{fusion}_proj"] = _t(params[f"{fusion}_proj"])
+            out[f"{fusion}_proj_bias"] = _t(params[f"{fusion}_proj_bias"])
+    if "deform_fusion" in params:
         for layer in ("value", "offsets", "attn", "out"):
             _dense(params["deform_fusion"][layer], out, f"deform_fusion.{layer}")
+    if "AttentionFusion_0" in params:
+        _dense(params["AttentionFusion_0"]["Dense_0"], out, "attn_fusion.hidden")
+        _dense(params["AttentionFusion_0"]["Dense_1"], out, "attn_fusion.logit")
+    if "bev_proj" in params:
+        bp = params["bev_proj"]
+        _dense({"kernel": np.asarray(bp["kernel"])[0, 0], "bias": bp["bias"]}, out, "bev_proj")
     det = params["detector"]
     for i in range(3):
         _conv(det[f"stem{i}"], out, f"detector.stem{i}")
@@ -130,7 +151,9 @@ def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:
     Kernels are LeCun-normal truncated at 2 sigma (Flax's default init),
     biases 0, norm scales 1, BatchNorm statistics (0, 1), with the head's
     CenterNet constants and, for ``deform_attn``, the sampling heads' zero
-    kernels and ring bias. Built on the CPU.
+    kernels and ring bias. ``bev_proj`` and the attention fusion's layers
+    start as Flax's ``Conv`` and ``Dense`` do (fan-in the input channels).
+    Built on the CPU.
     """
     g = torch.Generator().manual_seed(seed)
     model = BEVNet.from_config(cfg)

@@ -38,6 +38,20 @@
 // compute dtype at the matmul; the product of two bf16 values is exact in
 // f32, the sum is f32 and the result is rounded once to the output dtype.
 // f32 feats keep f32 weights.
+//
+// Ablation variants (warp_tiles_variant_launch), the counterpart of the TPU
+// script's _resident_variant (scripts/roofline_warp.py): the same kernel
+// with one part taken out at compile time, wrong by design, to see where
+// its time goes. No model path runs them.
+//   kFull          the kernel as it is (warp_tiles_launch runs this one);
+//   kConstWeights  every tap weighs 0.25 and wts is never read: all V*4
+//                  taps of a cell are gathered, none is skipped;
+//   kRow0          every tap reads source row 0 of its view: the LUT is
+//                  walked and the weights applied as in kFull, but the
+//                  scattered gather becomes one cached row a view;
+//   kNoGather      feats is never read: each channel of a cell gets the
+//                  sum of the cell's tap weights, so what is left is the
+//                  LUT walk and the stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +65,8 @@ constexpr int kMaxViews = 64;
 // staged taps per block: (int idx + float wt) each, within the 48 KB of
 // shared memory a block gets without opting in
 constexpr int kMaxStagedTaps = 48 * 1024 / 8;
+
+enum Variant { kFull = 0, kConstWeights = 1, kRow0 = 2, kNoGather = 3, kVariants = 4 };
 
 // 8 contiguous elements as float; vectorised 16-byte loads when VEC.
 template <bool VEC>
@@ -116,7 +132,7 @@ __device__ __forceinline__ float tap_weight(float w, const __nv_bfloat16*) {
 }
 __device__ __forceinline__ float tap_weight(float w, const float*) { return w; }
 
-template <typename Tin, typename Tout, bool VEC>
+template <typename Tin, typename Tout, bool VEC, int VARIANT>
 __global__ void __launch_bounds__(kThreads)
 warp_tiles_kernel(const Tin* __restrict__ feats, const int* __restrict__ idx,
                   const float* __restrict__ wts, Tout* __restrict__ out,
@@ -135,13 +151,13 @@ warp_tiles_kernel(const Tin* __restrict__ feats, const int* __restrict__ idx,
     int id = 0;
     if (n < N) {
       const long long off = (static_cast<long long>(v) * N + n) * 4 + t;
-      w = wts[off];
+      w = VARIANT == kConstWeights ? 0.25f : wts[off];
       id = idx[off];
     }
     // an index outside [0, P) is never made by the LUT; skip it rather
     // than read out of bounds
     if (id < 0 || id >= P) w = 0.f;
-    s_idx[i] = id;
+    s_idx[i] = VARIANT == kRow0 ? 0 : id;
     s_wts[i] = tap_weight(w, feats);
   }
   __syncthreads();
@@ -162,6 +178,11 @@ warp_tiles_kernel(const Tin* __restrict__ feats, const int* __restrict__ idx,
     for (int j = 0; j < taps; ++j) {
       const float wt = cw[j];
       if (wt == 0.f) continue;
+      if (VARIANT == kNoGather) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] += wt;
+        continue;
+      }
       const long long row = static_cast<long long>(j >> 2) * P + ci[j];
       float x[8];
       load8<VEC>(feats + row * K + k0, valid, x);
@@ -172,9 +193,9 @@ warp_tiles_kernel(const Tin* __restrict__ feats, const int* __restrict__ idx,
   }
 }
 
-template <typename Tin, typename Tout>
-void launch(const void* feats, const int* idx, const float* wts, void* out,
-            int V, int P, int N, int K, bool vec, cudaStream_t stream) {
+template <typename Tin, typename Tout, int VARIANT>
+void launch_variant(const void* feats, const int* idx, const float* wts, void* out,
+                    int V, int P, int N, int K, bool vec, cudaStream_t stream) {
   const int nchunk = (K + 7) / 8;
   int cells = (kItemsPerThread * kThreads + nchunk - 1) / nchunk;
   cells = cells < 1 ? 1 : cells;
@@ -184,9 +205,20 @@ void launch(const void* feats, const int* idx, const float* wts, void* out,
   const Tin* f = static_cast<const Tin*>(feats);
   Tout* o = static_cast<Tout*>(out);
   if (vec)
-    warp_tiles_kernel<Tin, Tout, true><<<blocks, kThreads, smem, stream>>>(f, idx, wts, o, V, P, N, K, cells);
+    warp_tiles_kernel<Tin, Tout, true, VARIANT><<<blocks, kThreads, smem, stream>>>(f, idx, wts, o, V, P, N, K, cells);
   else
-    warp_tiles_kernel<Tin, Tout, false><<<blocks, kThreads, smem, stream>>>(f, idx, wts, o, V, P, N, K, cells);
+    warp_tiles_kernel<Tin, Tout, false, VARIANT><<<blocks, kThreads, smem, stream>>>(f, idx, wts, o, V, P, N, K, cells);
+}
+
+template <typename Tin, typename Tout>
+void launch(const void* feats, const int* idx, const float* wts, void* out,
+            int V, int P, int N, int K, bool vec, int variant, cudaStream_t stream) {
+  switch (variant) {
+    case kConstWeights: launch_variant<Tin, Tout, kConstWeights>(feats, idx, wts, out, V, P, N, K, vec, stream); break;
+    case kRow0: launch_variant<Tin, Tout, kRow0>(feats, idx, wts, out, V, P, N, K, vec, stream); break;
+    case kNoGather: launch_variant<Tin, Tout, kNoGather>(feats, idx, wts, out, V, P, N, K, vec, stream); break;
+    default: launch_variant<Tin, Tout, kFull>(feats, idx, wts, out, V, P, N, K, vec, stream); break;
+  }
 }
 
 }  // namespace
@@ -196,10 +228,12 @@ extern "C" {
 // dtype codes: 0 = float32, 1 = bfloat16. Launches on `stream`, which
 // belongs to the caller's current device. Returns 0, a cudaError_t from
 // the launch, or -1 for arguments the kernel does not take.
-int warp_tiles_launch(const void* feats, const void* idx, const void* wts, void* out,
-                      int V, int P, int N, int K, int in_dtype, int out_dtype,
-                      void* stream) {
+// `variant` is one of the Variant codes above.
+int warp_tiles_variant_launch(const void* feats, const void* idx, const void* wts, void* out,
+                              int V, int P, int N, int K, int in_dtype, int out_dtype,
+                              int variant, void* stream) {
   if (V < 1 || V > kMaxViews || P < 1 || N < 0 || K < 1) return -1;
+  if (variant < 0 || variant >= kVariants) return -1;
   if (N == 0) return 0;
   const bool vec = (K % 8 == 0) &&
                    (reinterpret_cast<uintptr_t>(feats) % 16 == 0) &&
@@ -208,16 +242,22 @@ int warp_tiles_launch(const void* feats, const void* idx, const void* wts, void*
   const float* w = static_cast<const float*>(wts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == 1 && out_dtype == 1)
-    launch<__nv_bfloat16, __nv_bfloat16>(feats, i, w, out, V, P, N, K, vec, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(feats, i, w, out, V, P, N, K, vec, variant, s);
   else if (in_dtype == 1 && out_dtype == 0)
-    launch<__nv_bfloat16, float>(feats, i, w, out, V, P, N, K, vec, s);
+    launch<__nv_bfloat16, float>(feats, i, w, out, V, P, N, K, vec, variant, s);
   else if (in_dtype == 0 && out_dtype == 0)
-    launch<float, float>(feats, i, w, out, V, P, N, K, vec, s);
+    launch<float, float>(feats, i, w, out, V, P, N, K, vec, variant, s);
   else if (in_dtype == 0 && out_dtype == 1)
-    launch<float, __nv_bfloat16>(feats, i, w, out, V, P, N, K, vec, s);
+    launch<float, __nv_bfloat16>(feats, i, w, out, V, P, N, K, vec, variant, s);
   else
     return -1;
   return static_cast<int>(cudaGetLastError());
+}
+
+int warp_tiles_launch(const void* feats, const void* idx, const void* wts, void* out,
+                      int V, int P, int N, int K, int in_dtype, int out_dtype,
+                      void* stream) {
+  return warp_tiles_variant_launch(feats, idx, wts, out, V, P, N, K, in_dtype, out_dtype, kFull, stream);
 }
 
 const char* warp_tiles_error_string(int code) {

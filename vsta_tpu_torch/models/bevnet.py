@@ -1,21 +1,36 @@
 """BEVNet: encoder -> cross-view fusion onto the BEV grid -> positional
 encoding -> CenterNet head.
 
-The port carries two model families of the JAX package, both with static
-cameras:
+The port carries the fusions of the JAX package, each with static cameras
+(``STATIC_CAMERAS: true``: frame 0's calibration serves the batch) and with
+per-frame cameras (every frame warps under its own ``K``, ``Rt``):
 
 * ``FUSION: concat`` with ``WARP_IMPL: pallas`` (the flagship). The
   encoder's 1x1 projection is folded into the per-view projection (a ones
   channel carries its bias), and
-  :func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj_cuda` runs the warp;
-  with autograd on, :class:`~vsta_tpu_torch.ops.warp_cuda.FusedWarpProj`
-  runs it with its backward.
+  :func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj_cuda` runs the warp
+  kernel (``warp_tiles`` for static cameras, ``warp_views_sum`` for
+  per-frame ones); with autograd on,
+  :class:`~vsta_tpu_torch.ops.warp_cuda.FusedWarpProj` runs it with its
+  backward.
+* ``FUSION: concat`` with ``WARP_IMPL: fused``: the same folded projection
+  through the differentiable
+  :func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj` (the grouped
+  sampler) in serving and training, as the JAX package runs it off the TPU
+  kernel path.
 * ``FUSION: deform_attn``. A warped-sum query
   (:func:`~vsta_tpu_torch.ops.warp_cuda.fused_warp_proj` through the
   grouped sampler, in serving and training) is refined by
   :class:`~vsta_tpu_torch.models.fusion.DeformableFusion` on a query grid
   strided by ``ATTN_STRIDE``, whose residual is upsampled bilinearly in
   f32 and added.
+* The unfused fusions, on the per-view BEV maps of
+  :func:`~vsta_tpu_torch.ops.grouped_cuda.warp_views` (the encoder's
+  projection applied): ``concat`` with ``WARP_IMPL: gather`` (the per-view
+  projection as one einsum), ``sum`` / ``mean`` / ``max``
+  (:func:`~vsta_tpu_torch.models.fusion.simple_fusion`) and ``attn``
+  (:class:`~vsta_tpu_torch.models.fusion.AttentionFusion`), the last four
+  followed by the 1x1 ``bev_proj``.
 
 Inputs and outputs are channels-last, as in the JAX package.
 ``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and cuts the
@@ -34,13 +49,16 @@ from torch import nn
 from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..geometry import bev_sample_coords_with_depth, ground_grid
-from ..ops.grouped_cuda import KERNELS
+from ..ops.grouped_cuda import KERNELS, warp_views
 from ..ops.warp_cuda import FusedWarpProj, fused_warp_proj, fused_warp_proj_cuda, warp_tiles
+from ..ops.warp_views_cuda import warp_views_sum
 from .encoders.encoder import ViewEncoder
-from .fusion import DeformableFusion
+from .fusion import AttentionFusion, DeformableFusion, Dense, simple_fusion
 from .heads import BEVDetectorHead
 
 POS_CH = 2
+FUSIONS = ("concat", "deform_attn", "sum", "mean", "max", "attn")
+WARP_IMPLS = ("pallas", "fused", "gather")
 
 
 def positional_encoding(
@@ -83,61 +101,54 @@ class BEVNet(nn.Module):
         attn_heads: int = 4,
         attn_points: int = 4,
         attn_stride: int = 4,
+        warp_impl: str = "pallas",
+        static_cameras: bool = True,
     ):
         super().__init__()
-        if fusion not in ("concat", "deform_attn"):
-            raise NotImplementedError(
-                f"FUSION={fusion!r}: the port has concat and deform_attn; mean/sum/max and "
-                "attn are ROADMAP Queue 1, 'Fusions'"
-            )
+        if fusion not in FUSIONS:
+            raise ValueError(f"unknown fusion {fusion!r}: one of {FUSIONS}")
+        if warp_impl not in WARP_IMPLS:
+            raise ValueError(f"unknown warp_impl {warp_impl!r}: one of {WARP_IMPLS}")
         self.views, self.bev_size, self.bev_bounds = views, bev_size, bev_bounds
         self.freeze_backbone = freeze_backbone
         self.dtype = dtype
         self.fusion, self.attn_stride = fusion, max(1, attn_stride)
-        # concat folds the encoder's projection into the view projection;
-        # the deformable fusion samples the projected maps themselves
+        self.warp_impl, self.static_cameras = warp_impl, static_cameras
+        # concat under the fused warps folds the encoder's projection into
+        # the view projection; every other fusion works on the projected maps
+        self.fold_proj = fusion == "concat" and warp_impl in ("fused", "pallas")
         self.encoder = ViewEncoder(
-            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=fusion == "concat"
+            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=self.fold_proj
         )
         if fusion == "concat":
             self.view_proj = nn.Parameter(torch.empty(views, feat_dim, bev_proj_ch))
             self.view_proj_bias = nn.Parameter(torch.zeros(bev_proj_ch))
-        else:
+        elif fusion == "deform_attn":
             self.query_proj = nn.Parameter(torch.empty(views, feat_dim, bev_proj_ch))
             self.query_proj_bias = nn.Parameter(torch.zeros(bev_proj_ch))
             self.deform_fusion = DeformableFusion(
                 views, feat_dim, bev_proj_ch + POS_CH, attn_heads, attn_points, bev_proj_ch, dtype
             )
+        else:
+            if fusion == "attn":
+                self.attn_fusion = AttentionFusion(feat_dim, dtype=dtype)
+            self.bev_proj = Dense(feat_dim, bev_proj_ch)  # the 1x1 convolution
         self.detector = BEVDetectorHead(
             bev_proj_ch + POS_CH, bev_bounds, bev_size, default_box_wh,
             head_mid1, head_mid2, dtype,
         )
-        # the kernels the model runs (concat: the warp kernel, and the
-        # grouped sampler in its backward; deform_attn: the grouped sampler
-        # alone); a check may swap in warp_tiles_ref and grouped_cuda.PLAIN,
-        # their plain versions
+        # the kernels the model runs (concat/pallas: a warp kernel, warp
+        # for static cameras and views_sum for per-frame ones, and the
+        # grouped sampler in its backward; every other path: the grouped
+        # sampler alone); a check may swap in warp_tiles_ref,
+        # warp_views_sum_ref and grouped_cuda.PLAIN, their plain versions
         self.warp = warp_tiles
+        self.views_sum = warp_views_sum
         self.grouped = KERNELS
 
     @classmethod
     def from_config(cls, cfg: Config) -> "BEVNet":
         m = cfg.model
-        if m.fusion not in ("concat", "deform_attn"):
-            raise NotImplementedError(
-                f"FUSION={m.fusion!r}: the port has concat and deform_attn; mean/sum/max "
-                "(SimpleFusion) and attn (AttentionFusion) with the unfused warp_views "
-                "path are ROADMAP Queue 1, 'Fusions'"
-            )
-        if m.fusion == "concat" and m.warp_impl != "pallas":
-            raise NotImplementedError(
-                f"FUSION='concat' WARP_IMPL={m.warp_impl!r}: the port runs concat fusion "
-                "through the warp kernel (WARP_IMPL pallas) only; the XLA-style 'fused' and "
-                "'gather' concat paths are ROADMAP Queue 1, 'Fusions'"
-            )
-        if not m.static_cameras:
-            raise NotImplementedError(
-                "STATIC_CAMERAS false is ROADMAP Queue 1, 'Per-frame cameras'"
-            )
         return cls(
             views=cfg.data.views,
             bev_size=m.bev_size,
@@ -155,6 +166,8 @@ class BEVNet(nn.Module):
             attn_heads=m.attn_heads,
             attn_points=m.attn_points,
             attn_stride=m.attn_stride,
+            warp_impl=m.warp_impl,
+            static_cameras=m.static_cameras,
         )
 
     def train(self, mode: bool = True) -> "BEVNet":
@@ -167,8 +180,8 @@ class BEVNet(nn.Module):
 
     def forward(self, images: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images [B, V, H, W, 3] uint8 or float; K [B, V, 3, 3]; Rt
-        [B, V, 4, 4] world->camera (frame 0's calibration serves the batch).
-        Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32."""
+        [B, V, 4, 4] world->camera (with static cameras frame 0's calibration
+        serves the batch). Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32."""
         B, V, H, W, _ = images.shape
         if V != self.views:
             raise ValueError(f"model built for {self.views} views, got {V}")
@@ -180,19 +193,24 @@ class BEVNet(nn.Module):
             images = (images.float() - mean) * scale
 
         enc_out = self.encoder(images)
-        feats, enc_pk, enc_pb = enc_out if self.fusion == "concat" else (enc_out, None, None)
+        feats, enc_pk, enc_pb = enc_out if self.fold_proj else (enc_out, None, None)
         if self.freeze_backbone:
             feats = feats.detach()
         _, _, Hf, Wf, _ = feats.shape
         grid = ground_grid(Hb, Wb, self.bev_bounds, device=dev)
-        coords, depth_w = bev_sample_coords_with_depth(K[0], Rt[0], (H, W), (Hf, Wf), grid)
+        if self.static_cameras:  # [V, Hb, Wb, ...]: one calibration for the batch
+            coords, depth_w = bev_sample_coords_with_depth(K[0], Rt[0], (H, W), (Hf, Wf), grid)
+        else:  # [B, V, Hb, Wb, ...]
+            coords, depth_w = bev_sample_coords_with_depth(K, Rt, (H, W), (Hf, Wf), grid)
         pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
         pos = pos[None].expand(B, Hb, Wb, POS_CH)
 
         if self.fusion == "deform_attn":
             bev_main = self._deform(feats, coords, depth_w, pos)
-        else:
+        elif self.fold_proj:
             bev_main = self._concat(feats, enc_pk, enc_pb, coords)
+        else:
+            bev_main = self.fuse_views(self.per_view(feats, coords))
         bev_feat = torch.cat([bev_main, pos.to(bev_main.dtype)], dim=-1)
         out = self.detector(bev_feat)
         out["bev_feat"] = bev_feat.float()
@@ -205,8 +223,8 @@ class BEVNet(nn.Module):
         return query + self.attention_residual(feats, coords, depth_w, q_in)
 
     def warped_query(self, feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-        """feats [B, V, Hf, Wf, C], coords [V, Hb, Wb, 2] -> the views'
-        warped, projected sum [B, Hb, Wb, C_out], through the grouped
+        """feats [B, V, Hf, Wf, C], coords [V, Hb, Wb, 2] or
+        [B, V, Hb, Wb, 2] -> the views' warped, projected sum [B, Hb, Wb, C_out], through the grouped
         sampler in serving and training alike."""
         return fused_warp_proj(
             feats, coords, self.query_proj, self.query_proj_bias, self.dtype, grouped=self.grouped
@@ -215,11 +233,15 @@ class BEVNet(nn.Module):
     def attention_residual(self, feats, coords, depth_w, q_in) -> torch.Tensor:
         """The deformable fusion on the query grid strided by
         ``attn_stride``, upsampled bilinearly in f32 to the BEV grid;
-        q_in [B, Hb, Wb, C_out + 2] -> [B, Hb, Wb, C_out] in its dtype."""
+        q_in [B, Hb, Wb, C_out + 2] -> [B, Hb, Wb, C_out] in its dtype.
+        Shared coordinates and depths are expanded over the batch; per-frame
+        ones are taken as they come."""
         B = feats.shape[0]
         Hb, Wb = self.bev_size
-        coords_b = coords[None].expand(B, *coords.shape)
-        depth_b = depth_w[None].expand(B, *depth_w.shape)
+        coords_b, depth_b = coords, depth_w
+        if coords.ndim == 4:
+            coords_b = coords[None].expand(B, *coords.shape)
+            depth_b = depth_w[None].expand(B, *depth_w.shape)
         s = self.attn_stride
         q = q_in
         if s > 1:
@@ -233,7 +255,9 @@ class BEVNet(nn.Module):
         return res
 
     def _concat(self, feats, enc_pk, enc_pb, coords) -> torch.Tensor:
-        """The shared-camera warp + concat fusion + projection."""
+        """The warp + concat fusion + projection with the encoder's
+        projection folded in (WARP_IMPL pallas: through a warp kernel;
+        fused: through the grouped sampler)."""
         dev = feats.device
         # fold the encoder proj into the view projection: warp C_raw + 1
         # channels (the ones channel carries the encoder proj bias)
@@ -242,10 +266,32 @@ class BEVNet(nn.Module):
         kernel = torch.cat([composite, pre_bias[:, None, :]], dim=1)
         ones = torch.ones(feats.shape[:-1] + (1,), dtype=feats.dtype, device=dev)
         feats = torch.cat([feats, ones], dim=-1)
+        if self.warp_impl == "fused":
+            return fused_warp_proj(feats, coords, kernel, self.view_proj_bias, self.dtype, grouped=self.grouped)
         if torch.is_grad_enabled():
             return FusedWarpProj.apply(
-                feats, coords, kernel, self.view_proj_bias, self.dtype, self.warp, self.grouped
+                feats, coords, kernel, self.view_proj_bias, self.dtype, self.warp, self.grouped, self.views_sum
             )
         return fused_warp_proj_cuda(
-            feats, coords, kernel, self.view_proj_bias, self.dtype, warp=self.warp
+            feats, coords, kernel, self.view_proj_bias, self.dtype, warp=self.warp, views_sum=self.views_sum
         )
+
+    def per_view(self, feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """feats [B, V, Hf, Wf, C] -> every view's BEV map
+        [B, V, Hb, Wb, C]; shared coordinates are expanded over the batch."""
+        if coords.ndim == 4:
+            coords = coords[None].expand(feats.shape[0], *coords.shape)
+        return warp_views(feats, coords, grouped=self.grouped)
+
+    def fuse_views(self, per_view: torch.Tensor) -> torch.Tensor:
+        """The unfused fusions on the per-view BEV maps
+        [B, V, Hb, Wb, C] -> [B, Hb, Wb, C_out] in the compute dtype."""
+        if self.fusion == "concat":  # the [V, C, C_out] parameters of the fused path
+            out = torch.einsum("bvhwc,vco->bhwo", per_view.to(self.dtype), self.view_proj.to(self.dtype))
+            return out + self.view_proj_bias.to(self.dtype)
+        if self.fusion == "attn":
+            coverage = per_view.abs().amax(dim=-1)
+            fused = self.attn_fusion(per_view, coverage)
+        else:
+            fused = simple_fusion(per_view, self.fusion)
+        return self.bev_proj(fused.to(self.dtype))

@@ -1,6 +1,10 @@
-"""Cross-view BEV fusion: multi-view deformable cross-attention.
+"""Cross-view BEV fusion: the twins of ``vsta_tpu/models/fusion.py``.
 
-The twin of ``DeformableFusion`` (``vsta_tpu/models/fusion.py``). Each BEV
+:func:`simple_fusion` (sum, mean or max over the view axis) and
+:class:`AttentionFusion` (a softmax gate over the views of every cell)
+fuse per-view BEV maps that are already warped;
+:class:`DeformableFusion` is multi-view deformable cross-attention, which
+samples the image-space maps itself. Each BEV
 cell is a query; its reference point in view v is the projection of the
 cell's ground point into v's feature map. The query predicts, per head,
 ``points`` sampling offsets and attention logits per (view, point); values
@@ -42,6 +46,45 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # noqa: D102
         y = torch.matmul(x, self.weight.to(x.dtype).t())
         return y + self.bias.to(x.dtype)
+
+
+def simple_fusion(bev_views: torch.Tensor, mode: str) -> torch.Tensor:
+    """sum, mean or max over the view axis: [B, V, H, W, C] -> [B, H, W, C]
+    (``SimpleFusion``). Cells outside a view's image are exact zeros in
+    that view, so ties in the max are common: ``amax`` splits a tie's
+    gradient evenly, as ``jnp.max`` does."""
+    if mode == "sum":
+        return bev_views.sum(dim=1)
+    if mode == "mean":
+        return bev_views.mean(dim=1)
+    if mode == "max":
+        return bev_views.amax(dim=1)
+    raise ValueError(f"unknown simple fusion mode: {mode}")
+
+
+class AttentionFusion(nn.Module):
+    """Per-cell softmax gate over the views. Each view's warped feature
+    votes on its own relevance through a small projection (``hidden``
+    units, tanh, one logit); a view whose ``coverage`` of a cell is at
+    most 1e-6 (all-zero features after the zero-padded warp) is masked out
+    of the softmax. A cell no view covers gets equal weights over zeros."""
+
+    def __init__(self, in_ch: int, hidden: int = 32, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.hidden = Dense(in_ch, hidden)
+        self.logit = Dense(hidden, 1)
+
+    def forward(self, bev_views: torch.Tensor, coverage: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """bev_views [B, V, H, W, C]; coverage [B, V, H, W] or None.
+        Returns [B, H, W, C] in the compute dtype."""
+        x = bev_views.to(self.dtype)
+        logits = self.logit(torch.tanh(self.hidden(x)))[..., 0]  # [B, V, H, W]
+        if coverage is not None:
+            neg = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+            logits = torch.where(coverage > 1e-6, logits, neg)
+        w = torch.softmax(logits, dim=1)
+        return torch.einsum("bvhw,bvhwc->bhwc", w, x)
 
 
 class DeformableFusion(nn.Module):

@@ -416,3 +416,22 @@ def sample_bilinear_many(
     """:func:`sample_bilinear_many_scaled` without a scale: the twin of
     ``sample_bilinear_many`` (``vsta_tpu/ops/warp.py``)."""
     return sample_bilinear_many_scaled(feats, coords, None, grouped=grouped)
+
+
+def warp_views(
+    feats: torch.Tensor, coords: torch.Tensor, *, grouped: GroupedKernels = KERNELS
+) -> torch.Tensor:
+    """Warp every frame's per-view maps onto the BEV grid, unfused: the
+    twin of ``warp_views`` (``vsta_tpu/ops/warp.py``).
+
+    feats [B, V, Hf, Wf, C] in the compute dtype; coords
+    [B, V, Hb, Wb, 2] feature-pixel sample coordinates. Returns
+    [B, V, Hb, Wb, C]: :func:`sample_bilinear_many` with one group a
+    (frame, view).
+    """
+    B, V, Hf, Wf, C = feats.shape
+    Hb, Wb = coords.shape[2], coords.shape[3]
+    out = sample_bilinear_many(
+        feats.reshape(B * V, Hf, Wf, C), coords.reshape(B * V, Hb * Wb, 2), grouped=grouped
+    )
+    return out.reshape(B, V, Hb, Wb, C)
