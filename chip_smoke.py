@@ -19,12 +19,19 @@ Phases, each of which raises on failure (exit code != 0):
    (G=7 maps of 35*61 padded rows, N=43,200 samples, K=2*41 flagship and
    2*64 deformable query) and the deformable fusion's sampler (G=56 and
    448, N=10,800 at ATTN_STRIDE 4 and 172,800 at 1, K=32), with ragged K,
-   all-zero weights on poisoned maps and non-finite coordinates;
-   scatter_taps_grouped's dmaps bit-equal to the fused kernel's; the same
-   readings for each, and both routes of the backward that wants both
-   gradients (fused; the two one-sided kernels) timed at the sampler's
-   shapes; the unfused fusions' shapes at K = 1,280: G = 14 (training,
-   sample_tiles_grouped and scatter_taps_grouped) and G = 112 (serving at
+   all-zero weights on poisoned maps, non-finite coordinates and hot rows
+   (every sample at one coordinate: four rows of 43,200 taps a group);
+   the scatters' inverse LUT (tap_lut) equal to its plain version,
+   scatter_taps_grouped's dmaps bit-equal to the fused kernel's, two
+   launches of each bit-equal; the same readings for each, rows 3 and 6
+   split into the sort (lut_ms) and the walk (kernel_ms), row 3's library
+   yardstick with its CSR built beforehand and inside the timed call; a
+   sweep of the chunk size; one profiled call of each; both routes of the
+   backward that wants both gradients (fused; the two one-sided kernels)
+   timed at the sampler's shapes, and one backward of each route under
+   torch.cuda.set_sync_debug_mode("error"); the unfused fusions' shapes
+   at K = 1,280: G = 14 (training, sample_tiles_grouped and
+   scatter_taps_grouped) and G = 112 (serving at
    batch 16: one launch that writes 6.2e9 elements, every group held
    against the plain version, 8 groups at a time);
 5. serving: configs/wildtrack.yaml at full width with random weights
@@ -485,6 +492,83 @@ def deform_taps(dev, B, stride, seed=2):
     return flat_taps(anchors, Wf + 1), wts
 
 
+def lut_stats(label, idx, wts, P):
+    """Log the taps a source row (all in range: what a walk by row takes;
+    live: what the scatters sum) and how the chunks of the sorted taps
+    split the rows."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+
+    G, C = idx.shape[0], gc.CHUNK_TAPS
+    rows_all = (torch.arange(G, device=idx.device)[:, None, None] * P + idx.long()).reshape(-1)
+    per_row = torch.bincount(rows_all, minlength=G * P).float()
+    lut = gc.tap_lut(idx, wts, P)
+    live = lut.rows[lut.rows < G * P].long()
+    per_live = torch.bincount(live, minlength=G * P)
+    end = torch.cumsum(per_live, 0)
+    start = end - per_live
+    read = per_live > 0
+    span = (end[read] - 1) // C - start[read] // C + 1  # chunks a live row spans
+    log(f"[grouped] taps a source row at {label}: all {idx.numel()} taps, mean {float(per_row.mean()):.1f}, max "
+        f"{int(per_row.max())}; the {live.numel()} live ones: mean {float(per_live.float().mean()):.1f}, max "
+        f"{int(per_live.max())}, over {int(read.sum())} rows; chunks of {C} taps: {-(-idx.numel() // C)}, "
+        f"{-(-live.numel() // C)} with live taps; rows split across chunks {int((span > 1).sum())}, the longest "
+        f"over {int(span.max())} chunks")
+
+
+def chunk_sweep(P, shapes, sizes=(64, 128, 256, 512, 1024)):
+    """Rows 3 and 6 over a LUT built beforehand (kernel_ms) at each chunk
+    size, bf16; the package's CHUNK_TAPS is put back after."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    keep, times = gc.CHUNK_TAPS, {}
+    try:
+        for kind, label, (maps, gout, i, w) in shapes:
+            lut = gc.tap_lut(i, w, P)
+            for C in sizes:
+                gc.CHUNK_TAPS = C
+                args = (gout, i, w, P) if kind == "scatter_taps_grouped" else (maps, gout, i, w)
+                times[f"{kind} {label} C={C}"] = round(cuda_ms(getattr(gc, kind), *args, lut, warmup=2, iters=10), 4)
+            del lut
+    finally:
+        gc.CHUNK_TAPS = keep
+    log(f"[grouped] chunk sweep, kernel_ms by taps a chunk (CHUNK_TAPS = {keep}): {json.dumps(times)}")
+
+
+def sync_free_backward(inputs):
+    """One backward of each route of GroupedSample (maps alone, weights
+    alone, both fused, both split) under torch.cuda.set_sync_debug_mode
+    ("error"): the LUT reads nothing back to the host."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+
+    maps, gout, idx, wts = inputs
+    fits = gc.fused_backward_fits
+    routes = {"maps alone": (True, False, None, {"scatter_taps_grouped": 1}),
+              "weights alone": (False, True, None, {"taps_dot_grouped": 1}),
+              "both, fused": (True, True, True, {"scatter_tapdot_grouped": 1}),
+              "both, split": (True, True, False, {"scatter_taps_grouped": 1, "taps_dot_grouped": 1})}
+    for label, (need_maps, need_wts, fused, want) in routes.items():
+        m, w = maps.clone().requires_grad_(need_maps), wts.clone().requires_grad_(need_wts)
+        out = gc.GroupedSample.apply(m, idx, w, gc.KERNELS)
+        torch.cuda.synchronize()
+        before = {c.__name__: c.launches for c in grouped_counters()}
+        if fused is not None:
+            gc.fused_backward_fits = lambda *a, f=fused: f
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out.backward(gout)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            gc.fused_backward_fits = fits
+        torch.cuda.synchronize()
+        launched = {c.__name__: c.launches - before[c.__name__] for c in grouped_counters()}
+        check({k: v for k, v in launched.items() if v} == want, f"sync-free backward, {label}: launched {launched}")
+        grads = [t.grad for t in (m, w) if t.grad is not None]
+        check(all(bool(torch.isfinite(g).all()) for g in grads), f"sync-free backward, {label}: non-finite")
+    log(f"[grouped] one backward of each route ({', '.join(routes)}) at G=56 N=10800 K=32 bf16 under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
 def grouped_phase(dev):
     """The grouped sampler's four kernels against their plain versions at
     the shapes the training paths give them, and their times: the
@@ -515,9 +599,15 @@ def grouped_phase(dev):
         scatter_taps_grouped alone (a shape only they are given, whose
         plain d_wts would not fit beside it)."""
         maps, gout = maps.contiguous(), gout.contiguous()
+        Pm = maps.shape[1]
+        lut, lut_ref = gc.tap_lut(i, w, Pm), gc.tap_lut_ref(i, w, Pm)
+        check(torch.equal(lut.rows, lut_ref.rows) and torch.equal(lut.order, lut_ref.order),
+              f"{name}: tap_lut differs from its plain version")
+        del lut, lut_ref
         out = gc.sample_tiles_grouped(maps, i, w)
         if one_sided:
-            dm3 = gc.scatter_taps_grouped(gout, i, w, maps.shape[1])
+            dm3 = gc.scatter_taps_grouped(gout, i, w, Pm)
+            check(torch.equal(dm3, gc.scatter_taps_grouped(gout, i, w, Pm)), f"{name}: two launches of row 3 differ")
             torch.cuda.synchronize()
             ref_out = gc.sample_tiles_grouped_ref(maps, i, w)
             check(out.dtype == maps.dtype and out.shape == ref_out.shape, f"{name}: sample shape/dtype")
@@ -544,8 +634,13 @@ def grouped_phase(dev):
         errs[f"dmaps3 {name}"] = hold(f"scatter_taps_grouped {name}", dm3, ref_dm, dm_rule)
         errs[f"d_wts5 {name}"] = hold(f"taps_dot_grouped {name}", dw5, ref_dw, "f32")
         same = torch.equal(dm3, dm)
-        log(f"[kernel] scatter_taps_grouped {name}: dmaps bit-equal to scatter_tapdot_grouped's: {same}")
+        dm_b, dw_b = gc.scatter_tapdot_grouped(maps, gout, i, w)
+        again = torch.equal(dm_b, dm) and torch.equal(dw_b, dw) and torch.equal(gc.scatter_taps_grouped(gout, i, w, Pm), dm3)
+        del dm_b, dw_b
+        log(f"[kernel] scatter_taps_grouped {name}: dmaps bit-equal to scatter_tapdot_grouped's: {same}; "
+            f"two launches of each bit-equal: {again}")
         check(same, f"{name}: scatter_taps_grouped's dmaps differ from the fused kernel's")
+        check(again, f"{name}: two launches of row 3 or row 6 differ")
 
     cases(f"bf16 K={K}", maps32[..., :K].to(bf), gout32[..., :K].to(bf), idx, wts, "bf16")
     cases(f"f32 K={K}", maps32[..., :K], gout32[..., :K], idx, wts, "f32")
@@ -564,6 +659,16 @@ def grouped_phase(dev):
     banchors, bwts = anchored_taps(bad, (Hf, Wf))
     cases(f"non-finite coords f32 K={K}", maps32[..., :K], gout32[..., :K], flat_taps(banchors, Wf + 1),
           bwts.contiguous(), "f32")
+    # every sample at one coordinate, all four weights live (9/16, 3/16,
+    # 3/16, 1/16): the taps of a group fall on four rows, 43,200 taps a
+    # row, each row's carries chained across hundreds of chunks. Integer
+    # cotangents make every sum exact, whatever its order
+    hanchors, hwts = anchored_taps(torch.full_like(coords, 20.25), (Hf, Wf))
+    hot = (flat_taps(hanchors, Wf + 1), hwts.contiguous())
+    check(bool((hot[1] > 0).all()), "hot rows: every weight live")
+    hot_gout = torch.randint(-4, 5, (G, N, K), generator=gen, device=dev).float()
+    cases(f"hot rows bf16 K={K}", maps32[..., :K].to(bf), hot_gout.to(bf), *hot, "bf16")
+    cases(f"hot rows f32 K={K}", maps32[..., :K], hot_gout, *hot, "f32")
 
     # the deformable sampler's shapes: B = 2 and 16 at ATTN_STRIDE 4, B = 2 at 1
     deform = {}
@@ -656,6 +761,13 @@ def grouped_phase(dev):
         ms = cuda_ms(fn, *args, warmup=2, iters=10)
         plain_ms = cuda_ms(plain, *args, warmup=1, iters=3)
         library_ms, lib_s, more = None, "library_ms=null", {}
+        if kind in ("scatter_taps_grouped", "scatter_tapdot_grouped"):
+            # the two parts of the wrapper's time: the sort, and the walk
+            # with its carries over a LUT built beforehand
+            lut = gc.tap_lut(i, w, Pm)
+            more["lut_ms"] = cuda_ms(gc.tap_lut, i, w, Pm, warmup=2, iters=10)
+            more["kernel_ms"] = cuda_ms(fn, *args, lut, warmup=2, iters=10)
+            del lut
 
         def taps_matrix():
             """The sampler as a sparse [G*N, G*P] matrix (4 taps a row)."""
@@ -674,9 +786,17 @@ def grouped_phase(dev):
             nbytes = gout_bytes + idx_bytes + wts_bytes + Gm * Pm * Km * 4
             flops = 2 * n_live * Km
             if library:
+                # two ways: the transposed CSR built beforehand, and built
+                # from the taps inside the timed call, as the kernel's LUT is
+                g2 = gout.reshape(Gm * Nm, Km)
                 csr_t = taps_matrix().t().coalesce().to(gout.dtype).to_sparse_csr()
-                library_ms = cuda_ms(torch.sparse.mm, csr_t, gout.reshape(Gm * Nm, Km), warmup=1, iters=5)
-                lib_s = f"library_ms(sparse.mm, transposed CSR of the taps)={library_ms:.4f}"
+                library_ms = cuda_ms(torch.sparse.mm, csr_t, g2, warmup=1, iters=5)
+                del csr_t
+                more["library_built_ms"] = cuda_ms(
+                    lambda: torch.sparse.mm(taps_matrix().t().coalesce().to(gout.dtype).to_sparse_csr(), g2),
+                    warmup=1, iters=5)
+                lib_s = (f"library_ms(sparse.mm, transposed CSR of the taps, built beforehand)={library_ms:.4f}, "
+                         f"with the CSR built in the timed call={more['library_built_ms']:.4f}")
         elif kind == "taps_dot_grouped":
             nbytes = map_bytes + gout_bytes + idx_bytes + Gm * Nm * 4 * 4  # it reads no weights
             flops = 2 * n_taps * Km
@@ -714,7 +834,8 @@ def grouped_phase(dev):
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, **more,
         }
-        log(f"[grouped] {kind} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} {lib_s} "
+        split_s = (f" (lut_ms={more['lut_ms']:.4f} + kernel_ms={more['kernel_ms']:.4f})" if "lut_ms" in more else "")
+        log(f"[grouped] {kind} {shape}: ms={ms:.4f}{split_s} plain_ms={plain_ms:.4f} {lib_s} "
             f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}: {nbytes / 1e6:.1f} MB; "
             f"{flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}, {rows_read} map rows touched) "
             f"roofline_share={reading['bound_ms'] / ms:.3f}")
@@ -728,15 +849,15 @@ def grouped_phase(dev):
     plan = (
         ("scatter_taps_grouped", 686, [
             (query, "dmaps3 bf16 K=128", True), (flag, f"dmaps3 bf16 K={K}", True),
-            (s1, "dmaps3 deform G=56 N=172800 K=32 bf16", True), (s4, "dmaps3 deform G=56 N=10800 K=32 bf16", False),
-            (pf14, f"dmaps3 per-frame G=14 N={N} K=128 bf16", True), (pf112, f"dmaps3 per-frame G=112 N={N} K=128 bf16", False),
-            (wide14, f"dmaps3 unfused G=14 N={N} K=1280 bf16", False)]),
+            (s1, "dmaps3 deform G=56 N=172800 K=32 bf16", True), (s4, "dmaps3 deform G=56 N=10800 K=32 bf16", True),
+            (pf14, f"dmaps3 per-frame G=14 N={N} K=128 bf16", True), (pf112, f"dmaps3 per-frame G=112 N={N} K=128 bf16", True),
+            (wide14, f"dmaps3 unfused G=14 N={N} K=1280 bf16", True)]),
         ("sample_tiles_grouped", 955, [
-            (flag, f"sample bf16 K={K}", True), (query, "sample bf16 K=128", False),
-            (s4, "sample deform G=56 N=10800 K=32 bf16", True), (s4b16, "sample deform G=448 N=10800 K=32 bf16", False),
-            (s1, "sample deform G=56 N=172800 K=32 bf16", False),
+            (flag, f"sample bf16 K={K}", True), (query, "sample bf16 K=128", True),
+            (s4, "sample deform G=56 N=10800 K=32 bf16", True), (s4b16, "sample deform G=448 N=10800 K=32 bf16", True),
+            (s1, "sample deform G=56 N=172800 K=32 bf16", True),
             (pf14, f"sample per-frame G=14 N={N} K=128 bf16", True), (pf112, f"sample per-frame G=112 N={N} K=128 bf16", False),
-            (wide14, f"sample unfused G=14 N={N} K=1280 bf16", False)]),
+            (wide14, f"sample unfused G=14 N={N} K=1280 bf16", True)]),
         ("taps_dot_grouped", 1125, [
             (s1, "d_wts5 deform G=56 N=172800 K=32 bf16", True), (s4, "d_wts5 deform G=56 N=10800 K=32 bf16", True),
             (query, "d_wts5 bf16 K=128", True)]),
@@ -751,8 +872,14 @@ def grouped_phase(dev):
         entries.append({
             "name": kind, "route": "cuda", "source": GROUPED_SRC, "replaces": f"{WARP_TPU}:{line}",
             "launches": None, **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: first[k] for k in ("lut_ms", "kernel_ms", "library_built_ms") if k in first},
             "shape": first["shape"], "other_shapes": readings[1:],
         })
+
+    # where the device time of one call goes: the key kernel and the sort's
+    # passes, the memset, the walk and the carries
+    profile_request(gc.scatter_taps_grouped, (flag[1], flag[2], flag[3], P), f"scatter_taps_grouped G=7 K={K} bf16")
+    profile_request(gc.scatter_tapdot_grouped, s4, "scatter_tapdot_grouped G=56 N=10800 K=32 bf16")
 
     # the two routes of the backward that wants both gradients, at the
     # deformable sampler's shapes (the reference takes the fused kernel at
@@ -767,13 +894,13 @@ def grouped_phase(dev):
         log(f"[grouped] backward routes at {label}, bf16: fused scatter_tapdot_grouped {fused_ms:.4f} ms; "
             f"scatter_taps_grouped + taps_dot_grouped {split_ms:.4f} ms; the dispatch takes "
             f"{'the fused kernel' if fits else 'the two one-sided kernels'}")
-    offsets, _ = gc.inverse_taps(idx, P)
-    per_row = (offsets[1:] - offsets[:-1]).float()
-    offsets, _ = gc.inverse_taps(idx, P, live=wts != 0)
-    per_live = (offsets[1:] - offsets[:-1]).float()
-    log(f"[grouped] taps a source row at G=7 N=43200: mean {float(per_row.mean()):.1f}, max {int(per_row.max())} "
-        f"(scatter_tapdot_grouped walks them all); of weight != 0: mean {float(per_live.mean()):.1f}, "
-        f"max {int(per_live.max())} (scatter_taps_grouped walks these)")
+    lut_stats("G=7 N=43200 (the flagship warp's taps)", idx, wts, P)
+    lut_stats("hot rows G=7 N=43200", *hot, P)
+    lut_stats("deform G=56 N=172800", s1[2], s1[3], P)
+    chunk_sweep(P, (("scatter_taps_grouped", f"K={K}", flag), ("scatter_taps_grouped", "K=128", query),
+                    ("scatter_taps_grouped", "per-frame G=14 K=128", pf14), ("scatter_taps_grouped", "deform s1 K=32", s1),
+                    ("scatter_tapdot_grouped", "deform s4 K=32", s4), ("scatter_tapdot_grouped", f"K={K}", flag)))
+    sync_free_backward(s4)
     return entries
 
 

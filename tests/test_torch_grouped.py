@@ -143,17 +143,57 @@ def test_zero_weight_taps_keep_their_d_wts(rng):
     assert np.array_equal(_np(gc.sample_tiles_grouped_ref(_t(maps, torch.float32), idx, wts)), np.zeros((G, N, 16)))
 
 
+def _numpy_lut(idx, wts, P):
+    """The scatter kernels' inverse LUT in numpy: keys g*P + idx of the live
+    taps, G*P for the dead ones, sorted stably."""
+    G = idx.shape[0]
+    live = (idx >= 0) & (idx < P) & (wts != 0)
+    key = np.where(live, np.arange(G)[:, None, None] * P + idx, G * P).reshape(-1)
+    order = np.argsort(key, kind="stable")
+    return key[order], order
+
+
 def test_inverse_taps_is_a_csr_by_source_row(rng):
-    idx, _ = _taps(rng, exact=False)
-    idx[0, 3, 1] = P  # out of range: belongs to no row
-    offsets, order = gc.inverse_taps(idx, P)
-    assert offsets.dtype == order.dtype == torch.int32
-    assert offsets.shape == (G * P + 1,) and int(offsets[-1]) == G * N * 4 - 1
-    flat = idx.reshape(-1).long() + torch.arange(G).repeat_interleave(N * 4) * P
-    flat[(idx.reshape(-1) >= P)] = -1
-    for r in range(0, G * P, 7):
-        taps = order[offsets[r]:offsets[r + 1]].long()
-        assert torch.equal(taps, torch.nonzero(flat == r).reshape(-1))
+    """tap_lut: the taps sorted by the source row they read, the live ones
+    by g*P + idx and within a row by flat index, the dead ones (weight 0 or
+    an index outside [0, P)) last, as numpy's stable argsort orders them."""
+    idx, wts = _taps(rng, exact=True)
+    idx[0, 3, 1] = P  # out of range: dead whatever its weight
+    idx[2, 7, 0] = -1
+    wts[0, 3, 1] = wts[2, 7, 0] = 0.5
+    lut = gc.tap_lut(idx, wts, P)
+    assert lut.rows.dtype == lut.order.dtype == torch.int32
+    assert lut.rows.shape == lut.order.shape == (G * N * 4,)
+    want_rows, want_order = _numpy_lut(idx.numpy(), wts.numpy(), P)
+    np.testing.assert_array_equal(lut.rows.numpy(), want_rows)
+    np.testing.assert_array_equal(lut.order.numpy(), want_order)
+    n_live = int(((idx >= 0) & (idx < P) & (wts != 0)).sum())
+    assert int((lut.rows < G * P).sum()) == n_live < G * N * 4
+    assert bool((lut.rows[n_live:] == G * P).all())
+    dead = set(lut.order[n_live:].tolist())
+    assert {3 * 4 + 1, (2 * N + 7) * 4} <= dead
+
+
+@pytest.mark.parametrize("case", ["hot-rows", "all-dead", "one-group-one-sample"])
+def test_tap_lut_edge_cases(rng, case):
+    """tap_lut where one row takes every live tap of a group, where no tap
+    is live, and at the smallest shape: the numpy order, dead taps last."""
+    if case == "one-group-one-sample":
+        idx = torch.tensor([[[3, 4, 3 + WF + 1, 4 + WF + 1]]], dtype=torch.int32)
+        wts = torch.tensor([[[0.5, 0.0, 0.25, 0.25]]])
+    else:
+        idx = torch.full((G, N, 4), 7, dtype=torch.int32)
+        idx[..., 1] = 8
+        wts = torch.from_numpy(rng.uniform(0.1, 1.0, (G, N, 4)).astype(np.float32))
+        if case == "all-dead":
+            wts[...] = 0.0
+    lut = gc.tap_lut(idx, wts, P)
+    want_rows, want_order = _numpy_lut(idx.numpy(), wts.numpy(), P)
+    np.testing.assert_array_equal(lut.rows.numpy(), want_rows)
+    np.testing.assert_array_equal(lut.order.numpy(), want_order)
+    dead = lut.rows == idx.shape[0] * P
+    assert int(dead.sum()) == int((wts == 0).sum())
+    assert not bool(dead[:int((~dead).sum())].any())
 
 
 def test_grouped_wrappers_on_cpu_take_the_plain_versions(rng):

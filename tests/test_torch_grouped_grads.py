@@ -138,14 +138,22 @@ def test_taps_dot_keeps_zero_weight_taps(rng):
 
 
 def test_inverse_taps_leaves_out_dead_taps(rng):
-    idx, wts, P = _taps(rng, "anchored", exact=False)
-    live = wts != 0
-    offsets, order = gc.inverse_taps(idx, P, live=live)
-    assert int(offsets[-1]) == int(live.sum())
-    flat = idx.reshape(-1).long() + torch.arange(G).repeat_interleave(N * 4) * P
-    flat[~live.reshape(-1)] = -1
-    for r in range(0, G * P, 5):
-        assert torch.equal(order[offsets[r]:offsets[r + 1]].long(), torch.nonzero(flat == r).reshape(-1))
+    """tap_lut: every tap of weight 0 sorts after every live tap, in flat
+    order, with the dead key G*P; the live ones as numpy's stable argsort
+    orders them, for both tap constructions' masked taps."""
+    for taps in ("anchored", "lut"):
+        idx, wts, P = _taps(rng, taps, exact=False)
+        live = wts != 0
+        lut = gc.tap_lut(idx, wts, P)
+        n_live = int(live.sum())
+        assert 0 < n_live < G * N * 4
+        flat = (idx.long() + torch.arange(G)[:, None, None] * P).reshape(-1).numpy()
+        key = np.where(live.reshape(-1).numpy(), flat, G * P)
+        order = np.argsort(key, kind="stable")
+        np.testing.assert_array_equal(lut.order.numpy(), order)
+        np.testing.assert_array_equal(lut.rows.numpy(), key[order])
+        np.testing.assert_array_equal(lut.order[n_live:].numpy(), np.nonzero(~live.reshape(-1).numpy())[0])
+        assert bool((lut.rows[n_live:] == G * P).all()) and bool((lut.rows[:n_live] < G * P).all())
 
 
 def test_one_sided_wrappers_on_cpu_take_the_plain_versions(rng):

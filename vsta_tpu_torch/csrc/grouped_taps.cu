@@ -11,18 +11,22 @@
 // are float32 or bfloat16 (the compute dtype); sums are float32; dmaps and
 // d_wts are float32, out is the compute dtype.
 //
-// Replaces the TPU kernels sample_tiles_grouped, scatter_tapdot_grouped,
-// scatter_taps_windowed and taps_dot_grouped (vsta_tpu/ops/warp_pallas.py).
-// Those build one-hot [span, tile] matrices and multiply them on the matrix
-// unit over 512-row spans of a VMEM-resident map, because Mosaic has no
-// dynamic gather or scatter. A GPU gathers directly, so none of that
-// carries over.
+// Replaces the TPU kernels sample_tiles_grouped, scatter_tapdot_grouped
+// (vsta_tpu/ops/warp_pallas.py:1288, body _grouped_bwd_gmajor_kernel :1212),
+// scatter_taps_windowed (:686, bodies _scatter_kernel :592 and
+// _scatter_gmajor_kernel :643) and taps_dot_grouped. Those build one-hot
+// [span, tile] matrices and multiply them on the matrix unit over 512-row
+// spans of a VMEM-resident map, because Mosaic has no dynamic gather or
+// scatter. A GPU gathers directly, so none of that carries over.
 //
 // Rounding: with bf16 maps each tap weight is rounded to bf16 before its
 // product, as the TPU kernels cast the one-hot matrix to the compute dtype;
 // a product of two bf16 values is exact in f32.
 //
-// Bound: memory bytes (a few flops per element moved).
+// Bound: memory bytes (a few flops per element moved): for the scatters
+// gout, idx and wts read once and dmaps written once (scatter_tapdot: the
+// map rows the taps touch read once and d_wts written once besides), over
+// 3.35 TB/s. The sort of the taps below is not in the bound.
 //
 // sample: a block takes `cells` consecutive samples of one group and stages
 // their 4 taps in shared memory; each thread sums the 4 taps of one item
@@ -32,44 +36,75 @@
 // threads still read consecutive channels of a row and the loads coalesce.
 // Taps of weight 0 are skipped.
 //
-// scatter_tapdot: deterministic, with no float atomics. The wrapper sorts
-// the taps by the source row they read (CSR: offsets over the G*P rows,
-// order = flat tap indices (g*N + n)*4 + t, increasing within a row). One
-// warp owns one source row: its lanes hold the row's channels (the map row
-// in registers, the dmaps accumulator in registers) and walk the row's
-// taps in order; per tap they add w * gout[n] into the accumulator and
-// reduce <map row, gout[n]> across the warp into d_wts[n, t], which no
-// other warp writes. Zero-weight taps stay in the walk: they add nothing
-// to dmaps but their d_wts is real. A row no tap reads gets dmaps = 0.
-// Rows wider than one pass (32 lanes x kChanPerLane channels) are walked
-// once per pass, d_wts adding up the passes.
+// The scatters are a segmented reduction over the taps sorted by the row
+// they read (Merrill and Garland's merge-based sparse product, with a K-wide
+// right-hand side), deterministic and without float atomics.
 //
-// scatter_taps: the same walk over the same CSR without the tap dots, so
-// it needs no map and no reduction across lanes: one thread owns one
-// (source row, channel) and adds w * gout[n, k] over the row's taps in
-// order, which makes its dmaps equal scatter_tapdot's bit for bit.
-// Consecutive threads own consecutive channels of a row, so the cotangent
-// loads coalesce and the (tap, weight) loads are one broadcast. The
-// wrapper may leave taps of weight 0 out of the CSR: they add nothing.
+// The sort (tap_lut): one key a tap, g*P + idx for a live tap (idx in
+// [0, P), weight != 0) and G*P for a dead one, int32, sorted stably with
+// the flat tap index (g*N + n)*4 + t as the value by CUB's radix sort over
+// the key's bits only (2 passes of 8 bits for the flagship's 14, 3 for
+// the deformable sampler's 17): rows[] are the sorted keys (the live taps by row, then every dead
+// tap), order[] the tap indices, increasing within a row. No counts, no
+// offsets: a kernel finds where a row ends by comparing neighbours.
 //
-// taps_dot: sample-major, no sort and no CSR. A sub-warp of L lanes (8, 16
-// or 32, the least that covers K up to 32) owns one sample: the lanes
-// stride over K, each summing its share of the 4 dots <map row of tap t,
-// gout[n]> in f32, a butterfly of shuffles adds the shares, and lane 0
-// stores the sample's 4 dots as one 16-byte word. Every tap is computed,
-// weight 0 or not (a clamped index is a valid row; the caller's mask
-// multiplies junk away); a tap outside [0, P) gives 0.
+// scatter_taps: the sorted taps are cut into chunks of C (CHUNK_TAPS in
+// the wrapper); one warp owns a chunk and a slice of channels: each lane 1
+// or 2 runs of V channels (V the widest of 16-, 8-, 4- or 2-byte loads that
+// K allows with 32 runs a row or more). It stages 32 taps at a time, a tap
+// a lane (rows, order: coalesced; weights: gathered), the next batch's
+// loads issued before this batch is summed, and walks them in order:
+// up to 16 taps' cotangent rows loaded before their sums, each tap's row
+// and weight shuffled from the staging lane when it is summed, w * gout[n]
+// added in f32 registers while the row holds. When the row changes it
+// stores the finished sum: straight to dmaps for a row that begins and
+// ends in the chunk; to a carry buffer [chunks, 2, K] for the chunk's
+// first row if it began in an earlier chunk (slot 0) and its last if it
+// goes on into the next (slot 1). The time follows the number of live taps
+// over the number of warps, not the busiest row; what holds it is the
+// loads in flight (the registers they land in: three blocks of 8 warps an
+// SM), as the cotangent rows are gathered once for each of their 4 taps.
+//
+// scatter_carry: one warp a chunk; the chunk in which a split row begins
+// (its owner) adds the row's partial sums in chunk order and stores the
+// row. Every row's sum so has one order, taps in sorted order within a
+// chunk, chunks in order, whatever the scheduling. Rows no live tap reads
+// are the memset's 0.
+//
+// scatter_tapdot: the same chunks of the same sort and the same walk, so
+// its dmaps equal scatter_taps' bit for bit (a channel's sum is the same
+// sequence of fmaf whatever lane holds it), with the dots beside: the
+// segment's map row is loaded once, with the cotangent rows of the taps
+// around the one it begins at, and held in registers; each live tap's
+// partial <map row, gout[n]> is taken per lane, and a round of U taps is
+// reduced together by a transposing butterfly (U - 1 + log2(32 / U)
+// shuffles for U dots, where 5 a dot would take 5 U). The dead taps, at
+// the end of the order, add nothing to dmaps but each still gets its dot
+// with the map row idx points at (0 outside [0, P)). Slices of channels
+// add up in shared memory, so each d_wts[f] is stored once.
+//
+// taps_dot: sample-major, no sort. A sub-warp of L lanes (8, 16 or 32, the
+// least that covers K up to 32) owns one sample: the lanes stride over K,
+// each summing its share of the 4 dots <map row of tap t, gout[n]> in f32,
+// a butterfly of shuffles adds the shares, and lane 0 stores the sample's
+// 4 dots as one 16-byte word. Every tap is computed, weight 0 or not (a
+// clamped index is a valid row; the caller's mask multiplies junk away); a
+// tap outside [0, P) gives 0.
 
+#include <cub/device/device_radix_sort.cuh>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;  // chunks a block
 constexpr int kItemsPerThread = 4;
 constexpr int kMaxStagedCells = 48 * 1024 / (4 * 8);  // 4 taps x (idx + wt)
-constexpr int kChanPerLane = 4;                       // 128 channels a pass
+constexpr int kMaxChunk = 1024;  // scatter_tapdot keeps a chunk's dots in shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -81,32 +116,53 @@ __device__ __forceinline__ float tap_weight(float w, const __nv_bfloat16*) {
 }
 __device__ __forceinline__ float tap_weight(float w, const float*) { return w; }
 
-// CH contiguous elements: 16-byte loads and stores for CH == 8, else one
-template <int CH>
-__device__ __forceinline__ void load_run(const __nv_bfloat16* p, float* v) {
-  if constexpr (CH == 8) {
-    uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// a run of V elements of T as one load brings it (2 to 16 bytes), widened
+// to f32 only where it is used, so that the loads in flight hold it packed
+template <typename T, int V>
+using Raw = typename std::conditional<
+    std::is_same<T, float>::value,
+    typename std::conditional<V == 4, float4, typename std::conditional<V == 2, float2, float>::type>::type,
+    typename std::conditional<
+        V == 8, uint4,
+        typename std::conditional<V == 4, uint2, typename std::conditional<V == 2, unsigned, unsigned short>::type>::type>::type>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p) {
+  return __ldg(reinterpret_cast<const Raw<T, V>*>(p));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void widen(const Raw<T, V>& r, float* v) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (V == 4) {
+      v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+    } else if constexpr (V == 2) {
+      v[0] = r.x; v[1] = r.y;
+    } else {
+      v[0] = r;
+    }
+  } else if constexpr (V == 1) {
+    v[0] = __bfloat162float(__ushort_as_bfloat16(r));
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
-  } else {
-    v[0] = __bfloat162float(p[0]);
   }
 }
 
-template <int CH>
-__device__ __forceinline__ void load_run(const float* p, float* v) {
-  if constexpr (CH == 8) {
-    float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// CH contiguous elements (1, 2, 4 or 8) widened to f32: one load, two for
+// 8 floats
+template <int CH, typename T>
+__device__ __forceinline__ void load_run(const T* p, float* v) {
+  if constexpr (std::is_same<T, float>::value && CH == 8) {
+    widen<float, 4>(load_raw<float, 4>(p), v);
+    widen<float, 4>(load_raw<float, 4>(p + 4), v + 4);
   } else {
-    v[0] = p[0];
+    widen<T, CH>(load_raw<T, CH>(p), v);
   }
 }
 
@@ -128,6 +184,10 @@ __device__ __forceinline__ void store_run(float* p, const float* v) {
   if constexpr (CH == 8) {
     reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
     reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else if constexpr (CH == 4) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (CH == 2) {
+    reinterpret_cast<float2*>(p)[0] = make_float2(v[0], v[1]);
   } else {
     p[0] = v[0];
   }
@@ -188,82 +248,352 @@ sample_kernel(const T* __restrict__ maps, const int* __restrict__ idx,
   }
 }
 
-// one warp a source row r in [0, G*P); 8 rows a block
-template <typename T>
+// the sort's input: keys (the row a live tap reads, else `dead` = G*P) and
+// values (the flat tap index), one thread a tap
 __global__ void __launch_bounds__(kThreads)
-scatter_tapdot_kernel(const T* __restrict__ maps, const T* __restrict__ gout,
-                      const float* __restrict__ wts, const int* __restrict__ order,
-                      const int* __restrict__ offsets, float* __restrict__ dmaps,
-                      float* __restrict__ dwts, int rows, int K) {
-  const int lane = threadIdx.x & 31;
-  const long long r = static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
-  if (r >= rows) return;  // whole warps leave together
-  const int beg = offsets[r], end = offsets[r + 1];
-  const T* mrow = maps + r * K;
+tap_keys_kernel(const int* __restrict__ idx, const float* __restrict__ wts, int* __restrict__ keys,
+                int* __restrict__ vals, int n, int P, int taps_per_group, int dead) {
+  const int f = blockIdx.x * kThreads + threadIdx.x;
+  if (f >= n) return;
+  const int id = idx[f];
+  const bool live = id >= 0 && id < P && wts[f] != 0.f;
+  keys[f] = live ? (f / taps_per_group) * P + id : dead;
+  vals[f] = f;
+}
 
-  for (int k0 = 0; k0 < K; k0 += 32 * kChanPerLane) {
-    float m[kChanPerLane], acc[kChanPerLane];
+// a chunk of the sorted taps, as every lane of its warp sees it
+struct Chunk {
+  int j0, j1;       // taps [j0, j1) of the order
+  int first, last;  // the rows of its first and last tap (`dead` for a dead tap)
+  bool head_split;  // its first row began in the chunk before
+  bool tail_split;  // its last row goes on into the chunk after
+};
+
+__device__ __forceinline__ Chunk chunk_at(const int* __restrict__ rows, long long c, int C, int n, int dead) {
+  Chunk ch;
+  ch.j0 = static_cast<int>(c * C);
+  ch.j1 = static_cast<int>(min(c * C + C, static_cast<long long>(n)));
+  ch.first = rows[ch.j0];
+  ch.last = rows[ch.j1 - 1];
+  ch.head_split = ch.first != dead && ch.j0 > 0 && rows[ch.j0 - 1] == ch.first;
+  ch.tail_split = ch.last != dead && ch.j1 < n && rows[ch.j1] == ch.last;
+  return ch;
+}
+
+// where a chunk's finished row goes: the first segment of a chunk whose
+// head is split to carry slot 0, the last one of a chunk whose tail is
+// split to slot 1, any other straight to dmaps
+__device__ __forceinline__ float* row_out(float* dmaps, float* carry, const Chunk& ch, long long c, int row,
+                                          bool first_seg, bool last_seg, int K) {
+  if (first_seg && ch.head_split) return carry + (2 * c) * K;
+  if (last_seg && ch.tail_split) return carry + (2 * c + 1) * K;
+  return dmaps + static_cast<long long>(row) * K;
+}
+
+// taps whose rows a lane keeps in flight at once (`rows` a tap: 1 for
+// scatter_taps, 2 for scatter_tapdot): 32 registers of raw runs, at most
+// 16 taps (8 for scatter_tapdot, which holds a dot a tap besides). A tap's
+// row and weight are shuffled out of the batch's staging again when it is
+// summed, so the registers in flight are the runs alone.
+template <typename T, int V, int R, int rows>
+__host__ __device__ constexpr int taps_in_flight() {
+  constexpr int words = rows * ((V * static_cast<int>(sizeof(T)) * R + 3) / 4);
+  constexpr int most = rows == 1 ? 16 : 8;
+  return 32 / words < 2 ? 2 : (32 / words > most ? most : 32 / words);
+}
+
+// one warp a (chunk, slice of 32 x R runs of V channels): grid
+// (ceil(chunks / 8), slices). A lane's run i holds channels
+// k0 + i*32*V .. + V.
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(kThreads, 3)
+scatter_taps_kernel(const T* __restrict__ gout, const float* __restrict__ wts,
+                    const int* __restrict__ rows, const int* __restrict__ order,
+                    float* __restrict__ dmaps, float* __restrict__ carry,
+                    int n, int C, int K, int dead, long long chunks) {
+  constexpr int U = taps_in_flight<T, V, R, 1>();
+  const int lane = threadIdx.x & 31;
+  const long long c = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (c >= chunks) return;  // whole warps leave together
+  const Chunk ch = chunk_at(rows, c, C, n, dead);
+  if (ch.first == dead) return;  // dead taps only: nothing for dmaps
+  const int k0 = (blockIdx.y * 32 * R + lane) * V;
+  float acc[R][V];
 #pragma unroll
-    for (int i = 0; i < kChanPerLane; ++i) {
-      const int k = k0 + lane + 32 * i;
-      m[i] = k < K ? to_f(mrow[k]) : 0.f;
-      acc[i] = 0.f;
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
+  int cur = ch.first;
+  bool first_seg = true;
+  auto emit = [&](bool last_seg) {
+    float* dst = row_out(dmaps, carry, ch, c, cur, first_seg, last_seg, K) + k0;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (k0 + i * 32 * V < K) store_run<V>(dst + i * 32 * V, acc[i]);
+  };
+  // a lane stages one tap of each batch of 32: its row, index and weight
+  int r_l = dead, f_l = 0;
+  float w_l = 0.f;
+  if (ch.j0 + lane < ch.j1) {
+    r_l = rows[ch.j0 + lane];
+    f_l = order[ch.j0 + lane];
+    if (r_l != dead) w_l = tap_weight(wts[f_l], gout);
+  }
+  for (int jb = ch.j0; jb < ch.j1; jb += 32) {
+    const int nb = min(32, ch.j1 - jb);
+    // the batch's live taps come first: the dead ones sort last
+    const int nl = __popc(__ballot_sync(kFull, lane < nb && r_l != dead));
+    if (nl == 0) break;  // and so do all the batches after it
+    // the next batch's rows and indices load while this one is summed
+    int nr_l = dead, nf_l = 0;
+    float nw_l = 0.f;
+    if (jb + 32 + lane < ch.j1) {
+      nr_l = rows[jb + 32 + lane];
+      nf_l = order[jb + 32 + lane];
     }
-    // taps in batches of 32: each lane loads one (index, weight), then the
-    // warp walks the batch in order, broadcasting each with a shuffle
-    for (int j0 = beg; j0 < end; j0 += 32) {
-      const int nb = min(32, end - j0);
-      int f_l = 0;
-      float w_l = 0.f;
-      if (lane < nb) {
-        f_l = order[j0 + lane];
-        w_l = tap_weight(wts[f_l], maps);
-      }
-      for (int q = 0; q < nb; ++q) {
-        const int f = __shfl_sync(kFull, f_l, q);
-        const float w = __shfl_sync(kFull, w_l, q);
-        const T* grow = gout + static_cast<long long>(f >> 2) * K;
-        float dot = 0.f;
+    for (int q0 = 0; q0 < nl; q0 += U) {
+      Raw<T, V> raw[U][R];
 #pragma unroll
-        for (int i = 0; i < kChanPerLane; ++i) {
-          const int k = k0 + lane + 32 * i;
-          if (k < K) {
-            const float gv = to_f(grow[k]);
-            acc[i] = fmaf(w, gv, acc[i]);
-            dot = fmaf(m[i], gv, dot);
-          }
+      for (int u = 0; u < U; ++u) {
+        const int f = __shfl_sync(kFull, f_l, (q0 + u) & 31);
+        const T* g = gout + static_cast<long long>(f >> 2) * K + k0;
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          if (q0 + u < nl && k0 + i * 32 * V < K) raw[u][i] = load_raw<T, V>(g + i * 32 * V);
+      }
+      // the next batch's weights, behind this batch's loads
+      if (q0 == 0 && nr_l != dead) nw_l = tap_weight(wts[nf_l], gout);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = __shfl_sync(kFull, r_l, (q0 + u) & 31);
+        const float w = __shfl_sync(kFull, w_l, (q0 + u) & 31);
+        if (q0 + u >= nl) break;  // the same for the whole warp
+        if (r != cur) {
+          emit(false);
+          cur = r;
+          first_seg = false;
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
         }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
-        if (lane == 0) dwts[f] = k0 == 0 ? dot : dwts[f] + dot;
+        for (int i = 0; i < R; ++i) {
+          if (k0 + i * 32 * V < K) {
+            float g[V];
+            widen<T, V>(raw[u][i], g);
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[i][e] = fmaf(w, g[e], acc[i][e]);
+          }
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < kChanPerLane; ++i) {
-      const int k = k0 + lane + 32 * i;
-      if (k < K) dmaps[r * K + k] = acc[i];
+    r_l = nr_l;
+    f_l = nf_l;
+    w_l = nw_l;
+  }
+  emit(true);
+}
+
+// one warp a chunk: the owner of a split row (the chunk it begins in) adds
+// its partial sums in chunk order and stores it; other warps leave
+__global__ void __launch_bounds__(kThreads)
+scatter_carry_kernel(const int* __restrict__ rows, const float* __restrict__ carry,
+                     float* __restrict__ dmaps, int n, int C, int K, int dead, long long chunks) {
+  const int lane = threadIdx.x & 31;
+  const long long c = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (c >= chunks) return;
+  const Chunk ch = chunk_at(rows, c, C, n, dead);
+  if (!ch.tail_split || (ch.head_split && ch.first == ch.last)) return;
+  const int row = ch.last;
+  // the row's last chunk: chunks c+1.. hold it while the chunk after them
+  // begins with it; 32 chunks checked at a time
+  long long c_end = c + 1;
+  for (;;) {
+    const long long d = c_end + 1 + lane;
+    const bool more = d * C < n && rows[d * C] == row;
+    const unsigned m = __ballot_sync(kFull, more);
+    if (m == kFull) {
+      c_end += 32;
+      continue;
     }
+    c_end += __ffs(~m) - 1;
+    break;
+  }
+  for (int k = lane; k < K; k += 32) {
+    float s = carry[(2 * c + 1) * K + k];
+#pragma unroll 8
+    for (long long d = c + 1; d <= c_end; ++d) s += carry[(2 * d) * K + k];
+    dmaps[static_cast<long long>(row) * K + k] = s;
   }
 }
 
-// one thread a (source row, channel): item = r * K + k over rows * K items
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_taps_kernel(const T* __restrict__ gout, const float* __restrict__ wts,
-                    const int* __restrict__ order, const int* __restrict__ offsets,
-                    float* __restrict__ dmaps, long long items, int K) {
-  const long long item = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (item >= items) return;
-  const long long r = item / K;
-  const int k = static_cast<int>(item - r * K);
-  const int beg = offsets[r], end = offsets[r + 1];
-  float acc = 0.f;
-  for (int j = beg; j < end; ++j) {
-    const int f = order[j];
-    const float w = tap_weight(wts[f], gout);
-    acc = fmaf(w, to_f(gout[static_cast<long long>(f >> 2) * K + k]), acc);
+// v[0..U) a lane; after it, every lane l holds the sum over the warp of
+// v[l % U] (U a power of two up to 32): a transposing butterfly, U - 1 +
+// log2(32 / U) shuffles for U sums where one sum alone takes 5
+template <int U>
+__device__ __forceinline__ float transpose_sum(float (&v)[U], int lane) {
+#pragma unroll
+  for (int h = U / 2; h >= 1; h >>= 1) {
+    const bool up = lane & h;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? v[i] : v[i + h];
+      const float keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, h);
+    }
   }
-  dmaps[item] = acc;
+#pragma unroll
+  for (int o = U; o < 32; o <<= 1) v[0] += __shfl_xor_sync(kFull, v[0], o);
+  return v[0];
+}
+
+// one warp a chunk, its slices of 32 x R runs of V channels in turn;
+// dynamic shared memory: kWarps * C floats (a chunk's dots)
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(kThreads, 3)
+scatter_tapdot_kernel(const T* __restrict__ maps, const T* __restrict__ gout,
+                      const float* __restrict__ wts, const int* __restrict__ idx,
+                      const int* __restrict__ rows, const int* __restrict__ order,
+                      float* __restrict__ dmaps, float* __restrict__ carry, float* __restrict__ dwts,
+                      int n, int C, int K, int P, int N, int dead, long long chunks, int slices) {
+  constexpr int U = taps_in_flight<T, V, R, 2>();  // a tap's cotangent row and map row
+  extern __shared__ float s_dots[];
+  const int lane = threadIdx.x & 31;
+  const long long c = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (c >= chunks) return;
+  float* dots = s_dots + (threadIdx.x >> 5) * C;
+  const Chunk ch = chunk_at(rows, c, C, n, dead);
+  for (int s = 0; s < slices; ++s) {
+    const int k0 = (s * 32 * R + lane) * V;
+    float acc[R][V], m[R][V];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[i][e] = m[i][e] = 0.f;
+    int cur = ch.first;
+    bool first_seg = true;
+    auto emit = [&](bool last_seg) {
+      float* dst = row_out(dmaps, carry, ch, c, cur, first_seg, last_seg, K) + k0;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (k0 + i * 32 * V < K) store_run<V>(dst + i * 32 * V, acc[i]);
+    };
+    if (cur != dead) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (k0 + i * 32 * V < K) load_run<V>(maps + static_cast<long long>(cur) * K + k0 + i * 32 * V, m[i]);
+    }
+    int prev = cur;  // the row of the tap before the batch
+    // a lane stages one tap of each batch of 32: its row, index, weight
+    // and, for a dead tap, the map row it points at (-1: none)
+    int r_l = dead, f_l = 0, d_l = -1;
+    float w_l = 0.f;
+    auto stage_rest = [&](int r, int f, float& w, int& d) {
+      if (r != dead) {
+        w = tap_weight(wts[f], maps);
+      } else {
+        const int id = idx[f];
+        if (id >= 0 && id < P) d = (f / (4 * N)) * P + id;
+      }
+    };
+    if (ch.j0 + lane < ch.j1) {
+      r_l = rows[ch.j0 + lane];
+      f_l = order[ch.j0 + lane];
+      stage_rest(r_l, f_l, w_l, d_l);
+    }
+    for (int jb = ch.j0; jb < ch.j1; jb += 32) {
+      const int nb = min(32, ch.j1 - jb);
+      const int nl = __popc(__ballot_sync(kFull, lane < nb && r_l != dead));  // live taps first
+      // the map row a tap's dot needs, loaded once: a live tap's where its
+      // row begins (the row before is in registers), a dead tap's own
+      const int up = __shfl_up_sync(kFull, r_l, 1);
+      const int m_l = r_l != dead ? (r_l != (lane == 0 ? prev : up) ? r_l : -1) : d_l;
+      prev = __shfl_sync(kFull, r_l, nb - 1);
+      const bool more = jb + 32 + lane < ch.j1;
+      int nr_l = dead, nf_l = 0, nd_l = -1;
+      float nw_l = 0.f;
+      if (more) {
+        nr_l = rows[jb + 32 + lane];
+        nf_l = order[jb + 32 + lane];
+      }
+      for (int q0 = 0; q0 < nb; q0 += U) {
+        Raw<T, V> graw[U][R], mraw[U][R];
+        float part[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int q = (q0 + u) & 31;
+          const int f = __shfl_sync(kFull, f_l, q);
+          const int mrow = __shfl_sync(kFull, m_l, q);
+          const T* g = gout + static_cast<long long>(f >> 2) * K + k0;
+          const T* mp = maps + static_cast<long long>(mrow) * K + k0;
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            if (q0 + u < nb && k0 + i * 32 * V < K) graw[u][i] = load_raw<T, V>(g + i * 32 * V);
+            if (q0 + u < nb && mrow >= 0 && k0 + i * 32 * V < K) mraw[u][i] = load_raw<T, V>(mp + i * 32 * V);
+          }
+        }
+        // the next batch's weights and dead rows, behind this batch's loads
+        if (q0 == 0 && more) stage_rest(nr_l, nf_l, nw_l, nd_l);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int q = (q0 + u) & 31;
+          const int r = __shfl_sync(kFull, r_l, q);
+          const float w = __shfl_sync(kFull, w_l, q);
+          const int mrow = __shfl_sync(kFull, m_l, q);
+          float p = 0.f;
+          if (q0 + u < nl) {  // a live tap; the same for the whole warp
+            if (r != cur) {
+              emit(false);
+              cur = r;
+              first_seg = false;
+#pragma unroll
+              for (int i = 0; i < R; ++i) {
+#pragma unroll
+                for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
+                if (k0 + i * 32 * V < K) widen<T, V>(mraw[u][i], m[i]);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              if (k0 + i * 32 * V < K) {
+                float g[V];
+                widen<T, V>(graw[u][i], g);
+#pragma unroll
+                for (int e = 0; e < V; ++e) {
+                  acc[i][e] = fmaf(w, g[e], acc[i][e]);
+                  p = fmaf(m[i][e], g[e], p);
+                }
+              }
+            }
+          } else if (q0 + u < nb && mrow >= 0) {  // a dead tap: its dot alone
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              if (k0 + i * 32 * V < K) {
+                float g[V], x[V];
+                widen<T, V>(graw[u][i], g);
+                widen<T, V>(mraw[u][i], x);
+#pragma unroll
+                for (int e = 0; e < V; ++e) p = fmaf(x[e], g[e], p);
+              }
+            }
+          }
+          part[u] = p;
+        }
+        const float t = transpose_sum<U>(part, lane);
+        const int j = q0 + lane;  // lane l < U holds tap q0 + l's dot over this slice
+        if (lane < U && j < nb) dots[jb - ch.j0 + j] = s == 0 ? t : dots[jb - ch.j0 + j] + t;
+      }
+      r_l = nr_l;
+      f_l = nf_l;
+      w_l = nw_l;
+      d_l = nd_l;
+    }
+    if (ch.first != dead) emit(true);
+  }
+  __syncwarp();
+  // every tap's d_wts once
+  for (int j = ch.j0 + lane; j < ch.j1; j += 32) dwts[order[j]] = dots[j - ch.j0];
 }
 
 // one sub-warp of L lanes a sample s in [0, G*N); kThreads / L samples a block
@@ -320,26 +650,75 @@ int launch_sample(const void* maps, const int* idx, const float* wts, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the widest vector (at most 16 bytes) that divides K, leaves at least 32
+// of them a row (a warp's lanes all hold channels) and that every pointer
+// is aligned to; then the runs a lane holds, 1 or 2
 template <typename T>
-int launch_scatter(const void* maps, const void* gout, const float* wts, const int* order,
-                   const int* offsets, float* dmaps, float* dwts, int rows, int K,
-                   cudaStream_t stream) {
-  const int per_block = kThreads / 32;
-  const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
-  scatter_tapdot_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(maps), static_cast<const T*>(gout), wts, order, offsets,
-      dmaps, dwts, rows, K);
-  return static_cast<int>(cudaGetLastError());
+void vector_shape(int K, const void* const* ptrs, int nptr, int* V, int* R) {
+  int v = 16 / static_cast<int>(sizeof(T));
+  for (; v > 1; v >>= 1) {
+    bool ok = K % v == 0 && K / v >= 32;
+    for (int i = 0; i < nptr; ++i) ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % (v * sizeof(T)) == 0;
+    if (ok) break;
+  }
+  *V = v;
+  *R = K / v > 32 ? 2 : 1;
 }
 
+struct ScatterArgs {
+  const void* maps;
+  const void* gout;
+  const float* wts;
+  const int* idx;
+  const int* rows;
+  const int* order;
+  float* dmaps;
+  float* carry;
+  float* dwts;
+  int n, C, K, P, N, dead;
+  long long chunks;
+};
+
+template <typename T, int V, int R>
+void launch_walk(const ScatterArgs& a, unsigned blocks, cudaStream_t stream) {
+  const int slices = (a.K / V + 32 * R - 1) / (32 * R);
+  if (a.dwts == nullptr) {
+    scatter_taps_kernel<T, V, R><<<dim3(blocks, slices), kThreads, 0, stream>>>(
+        static_cast<const T*>(a.gout), a.wts, a.rows, a.order, a.dmaps, a.carry, a.n, a.C, a.K, a.dead, a.chunks);
+  } else {
+    const size_t smem = static_cast<size_t>(kWarps) * a.C * sizeof(float);
+    scatter_tapdot_kernel<T, V, R><<<blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.maps), static_cast<const T*>(a.gout), a.wts, a.idx, a.rows, a.order,
+        a.dmaps, a.carry, a.dwts, a.n, a.C, a.K, a.P, a.N, a.dead, a.chunks, slices);
+  }
+}
+
+template <typename T, int V>
+void launch_walk_v(const ScatterArgs& a, int R, unsigned blocks, cudaStream_t stream) {
+  if (R == 2) launch_walk<T, V, 2>(a, blocks, stream);
+  else launch_walk<T, V, 1>(a, blocks, stream);
+}
+
+// dmaps = 0, the walk (scatter_taps_kernel, or scatter_tapdot_kernel where
+// dwts is given), then the carries
 template <typename T>
-int launch_scatter_taps(const void* gout, const float* wts, const int* order, const int* offsets,
-                        float* dmaps, long long rows, int K, cudaStream_t stream) {
-  const long long items = rows * K;
-  const long long blocks = (items + kThreads - 1) / kThreads;
+int launch_scatter(const ScatterArgs& a, cudaStream_t stream) {
+  const long long blocks = (a.chunks + kWarps - 1) / kWarps;
   if (blocks >= (1LL << 31)) return -1;
-  scatter_taps_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(gout), wts, order, offsets, dmaps, items, K);
+  const long long dm_bytes = static_cast<long long>(a.dead) * a.K * sizeof(float);
+  cudaError_t err = cudaMemsetAsync(a.dmaps, 0, dm_bytes, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const void* ptrs[] = {a.gout, a.dmaps, a.carry, a.maps == nullptr ? a.gout : a.maps};
+  int V, R;
+  vector_shape<T>(a.K, ptrs, 4, &V, &R);
+  if (V == 4) launch_walk_v<T, 4>(a, R, nb, stream);
+  else if (V == 2) launch_walk_v<T, 2>(a, R, nb, stream);
+  else if (V == 1) launch_walk_v<T, 1>(a, R, nb, stream);
+  else if constexpr (sizeof(T) == 2) launch_walk_v<T, 8>(a, R, nb, stream);  // 16-byte runs: bf16 only
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter_carry_kernel<<<nb, kThreads, 0, stream>>>(a.rows, a.carry, a.dmaps, a.n, a.C, a.K, a.dead, a.chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,6 +743,19 @@ int launch_taps_dot(const void* maps, const void* gout, const int* idx, float* d
   return launch_taps_dot_l<T, 32>(m, g, idx, dwts, samples, P, N, K, stream);
 }
 
+// the taps of G groups of N samples: n = G*N*4 < 2**31, keys in [0, G*P]
+bool lut_shape_ok(int G, int P, int N) {
+  return G >= 1 && P >= 1 && N >= 1 && static_cast<long long>(G) * N * 4 < (1LL << 31) &&
+         static_cast<long long>(G) * P < (1LL << 31);
+}
+
+int key_bits(int G, int P) {  // the bits of the dead key G*P, the largest
+  const unsigned dead = static_cast<unsigned>(G) * static_cast<unsigned>(P);
+  return 32 - __builtin_clz(dead);
+}
+
+size_t round_up(size_t x, size_t m) { return (x + m - 1) / m * m; }
+
 }  // namespace
 
 extern "C" {
@@ -383,43 +775,75 @@ int grouped_sample_launch(const void* maps, const void* idx, const void* wts, vo
   return -1;
 }
 
-// order/offsets: the CSR of the taps by source row (see the top of the file)
-int grouped_scatter_tapdot_launch(const void* maps, const void* gout, const void* wts,
-                                  const void* order, const void* offsets, void* dmaps,
-                                  void* dwts, int G, int P, int K, int dtype, void* stream) {
-  if (G < 0 || P < 1 || K < 1) return -1;
-  const long long rows = static_cast<long long>(G) * P;
-  if (rows == 0) return 0;
-  if (rows >= (1LL << 31)) return -1;
-  const float* w = static_cast<const float*>(wts);
-  const int* o = static_cast<const int*>(order);
-  const int* off = static_cast<const int*>(offsets);
-  float* dm = static_cast<float*>(dmaps);
-  float* dw = static_cast<float*>(dwts);
+// the workspace bytes of grouped_tap_lut_launch: the sort's input keys and
+// values and its temporary storage
+int grouped_tap_lut_workspace(int G, int P, int N, size_t* bytes) {
+  if (!lut_shape_ok(G, P, N)) return -1;
+  const int n = G * N * 4;
+  size_t temp = 0;
+  cudaError_t err = cub::DeviceRadixSort::SortPairs(
+      nullptr, temp, static_cast<const int*>(nullptr), static_cast<int*>(nullptr),
+      static_cast<const int*>(nullptr), static_cast<int*>(nullptr), n, 0, key_bits(G, P));
+  *bytes = 2 * round_up(static_cast<size_t>(n) * sizeof(int), 256) + temp;
+  return static_cast<int>(err);
+}
+
+// rows/order [G*N*4] int32: the taps sorted by the row they read (see the
+// top of the file); work: grouped_tap_lut_workspace's bytes, 256-byte
+// aligned
+int grouped_tap_lut_launch(const void* idx, const void* wts, void* rows, void* order, void* work,
+                           size_t work_bytes, int G, int P, int N, void* stream) {
+  if (!lut_shape_ok(G, P, N) || reinterpret_cast<uintptr_t>(work) % 256 != 0) return -1;
+  const int n = G * N * 4;
+  const size_t part = round_up(static_cast<size_t>(n) * sizeof(int), 256);
+  if (work_bytes < 2 * part) return -1;
+  int* keys = static_cast<int*>(work);
+  int* vals = reinterpret_cast<int*>(static_cast<char*>(work) + part);
+  void* temp = static_cast<char*>(work) + 2 * part;
+  size_t temp_bytes = work_bytes - 2 * part;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_scatter<__nv_bfloat16>(maps, gout, w, o, off, dm, dw, static_cast<int>(rows), K, s);
-  if (dtype == 0)
-    return launch_scatter<float>(maps, gout, w, o, off, dm, dw, static_cast<int>(rows), K, s);
+  tap_keys_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(wts), keys, vals, n, P, N * 4, G * P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cub::DeviceRadixSort::SortPairs(temp, temp_bytes, keys, static_cast<int*>(rows), vals,
+                                        static_cast<int*>(order), n, 0, key_bits(G, P), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// both gradients over the sorted taps: dmaps [G, P, K] and dwts [G, N, 4]
+// float32, carry [ceil(G*N*4 / chunk), 2, K] float32 scratch; chunk taps a
+// warp (both scatters must use the same for their dmaps to agree)
+int grouped_scatter_tapdot_launch(const void* maps, const void* gout, const void* wts, const void* idx,
+                                  const void* rows, const void* order, void* dmaps, void* carry,
+                                  void* dwts, int G, int P, int N, int K, int chunk, int dtype,
+                                  void* stream) {
+  if (!lut_shape_ok(G, P, N) || K < 1 || chunk < 1 || chunk > kMaxChunk) return -1;
+  const int n = G * N * 4;
+  const ScatterArgs a{maps, gout, static_cast<const float*>(wts), static_cast<const int*>(idx),
+                      static_cast<const int*>(rows), static_cast<const int*>(order),
+                      static_cast<float*>(dmaps), static_cast<float*>(carry), static_cast<float*>(dwts),
+                      n, chunk, K, P, N, G * P, (static_cast<long long>(n) + chunk - 1) / chunk};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_scatter<__nv_bfloat16>(a, s);
+  if (dtype == 0) return launch_scatter<float>(a, s);
   return -1;
 }
 
-// dmaps alone; order/offsets as above (the wrapper may leave out taps of
-// weight 0)
-int grouped_scatter_taps_launch(const void* gout, const void* wts, const void* order,
-                                const void* offsets, void* dmaps, int G, int P, int K,
-                                int dtype, void* stream) {
-  if (G < 0 || P < 1 || K < 1) return -1;
-  const long long rows = static_cast<long long>(G) * P;
-  if (rows == 0) return 0;
-  if (rows >= (1LL << 31)) return -1;
-  const float* w = static_cast<const float*>(wts);
-  const int* o = static_cast<const int*>(order);
-  const int* off = static_cast<const int*>(offsets);
-  float* dm = static_cast<float*>(dmaps);
+// dmaps alone over the same sort and chunks
+int grouped_scatter_taps_launch(const void* gout, const void* wts, const void* rows, const void* order,
+                                void* dmaps, void* carry, int G, int P, int N, int K, int chunk, int dtype,
+                                void* stream) {
+  if (!lut_shape_ok(G, P, N) || K < 1 || chunk < 1 || chunk > kMaxChunk) return -1;
+  const int n = G * N * 4;
+  const ScatterArgs a{nullptr, gout, static_cast<const float*>(wts), nullptr,
+                      static_cast<const int*>(rows), static_cast<const int*>(order),
+                      static_cast<float*>(dmaps), static_cast<float*>(carry), nullptr,
+                      n, chunk, K, P, N, G * P, (static_cast<long long>(n) + chunk - 1) / chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_scatter_taps<__nv_bfloat16>(gout, w, o, off, dm, rows, K, s);
-  if (dtype == 0) return launch_scatter_taps<float>(gout, w, o, off, dm, rows, K, s);
+  if (dtype == 1) return launch_scatter<__nv_bfloat16>(a, s);
+  if (dtype == 0) return launch_scatter<float>(a, s);
   return -1;
 }
 

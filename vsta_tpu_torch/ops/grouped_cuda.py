@@ -9,9 +9,12 @@ Four kernels. :func:`sample_tiles_grouped` computes
 
 :func:`scatter_tapdot_grouped` computes both in one pass,
 :func:`scatter_taps_grouped` dmaps alone and :func:`taps_dot_grouped`
-d_wts alone. They replace the TPU kernels ``sample_tiles_grouped``,
-``scatter_tapdot_grouped``, ``scatter_taps_windowed`` and
-``taps_dot_grouped`` (``vsta_tpu/ops/warp_pallas.py``); the ``*_ref``
+d_wts alone; the two scatters walk the taps sorted by the source row they
+read (:func:`tap_lut`), cut into chunks of :data:`CHUNK_TAPS`: a segmented
+reduction with no float atomics. They replace the TPU kernels
+``sample_tiles_grouped``, ``scatter_tapdot_grouped``,
+``scatter_taps_windowed`` and ``taps_dot_grouped``
+(``vsta_tpu/ops/warp_pallas.py``); the ``*_ref``
 functions are their plain PyTorch versions. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. In bf16 every tap
 weight is rounded to bf16 before its product, as the TPU kernels cast
@@ -30,6 +33,7 @@ through the two one-sided kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -87,19 +91,18 @@ def scatter_tapdot_grouped_ref(
 def _library() -> ctypes.CDLL:
     """The built kernel library, its C functions typed (built on first use)."""
     lib = kernels.load("grouped_taps")
-    lib.grouped_sample_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.grouped_sample_launch.restype = ctypes.c_int
-    lib.grouped_scatter_tapdot_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    )
-    lib.grouped_scatter_tapdot_launch.restype = ctypes.c_int
-    lib.grouped_scatter_taps_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    )
-    lib.grouped_scatter_taps_launch.restype = ctypes.c_int
-    lib.grouped_taps_dot_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.grouped_taps_dot_launch.restype = ctypes.c_int
-    lib.grouped_taps_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+        ("grouped_sample_launch", [ptr] * 4 + [i32] * 5 + [ptr]),
+        ("grouped_tap_lut_workspace", [i32] * 3 + [ctypes.POINTER(ctypes.c_size_t)]),
+        ("grouped_tap_lut_launch", [ptr] * 5 + [ctypes.c_size_t] + [i32] * 3 + [ptr]),
+        ("grouped_scatter_tapdot_launch", [ptr] * 9 + [i32] * 6 + [ptr]),
+        ("grouped_scatter_taps_launch", [ptr] * 6 + [i32] * 6 + [ptr]),
+        ("grouped_taps_dot_launch", [ptr] * 4 + [i32] * 5 + [ptr]),
+    ):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i32
+    lib.grouped_taps_error_string.argtypes = [i32]
     lib.grouped_taps_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -178,53 +181,107 @@ def sample_tiles_grouped(maps: torch.Tensor, idx: torch.Tensor, wts: torch.Tenso
 sample_tiles_grouped.launches = 0
 
 
-def inverse_taps(
-    idx: torch.Tensor, P: int, live: Optional[torch.Tensor] = None
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The taps grouped by the source row they read: CSR over the G*P rows.
+# sorted taps a warp of the two scatter kernels: both must use the same for
+# their dmaps to agree bit for bit (a chunk's partial sums are its order of
+# addition). 128 was the fastest or within 10 % of it from 64 to 1,024 at
+# the main shapes on the H100 (chip_smoke.py's chunk sweep)
+CHUNK_TAPS = 128
 
-    Returns (offsets [G*P + 1] int32, order [G*N*4] int32): the taps of row
-    ``r = g*P + p`` are ``order[offsets[r]:offsets[r+1]]``, flat indices
-    ``(g*N + n)*4 + t`` in increasing order. A tap outside [0, P) belongs
-    to no row, nor does one that ``live`` ([G, N, 4] bool) marks False.
-    """
+
+class TapLut(NamedTuple):
+    """The taps sorted by the source row they read (:func:`tap_lut`).
+
+    ``rows`` [G*N*4] int32: ``g*P + idx`` of every live tap (idx in
+    [0, P), weight != 0) in increasing order, then ``G*P`` once for each
+    dead tap. ``order`` [G*N*4] int32: the flat tap indices
+    ``(g*N + n)*4 + t`` in the same order, increasing within a row (a
+    stable sort), the dead taps last."""
+
+    rows: torch.Tensor
+    order: torch.Tensor
+
+
+def tap_lut_ref(idx: torch.Tensor, wts: torch.Tensor, P: int) -> TapLut:
+    """Plain PyTorch version of :func:`tap_lut` (any device)."""
     G = idx.shape[0]
-    base = torch.arange(G, device=idx.device, dtype=torch.int64)[:, None, None] * P
-    ok = (idx >= 0) & (idx < P)
-    if live is not None:
-        ok &= live
-    key = torch.where(ok, base + idx.long(), G * P).reshape(-1)
-    order = torch.argsort(key, stable=True).to(torch.int32)
-    counts = torch.bincount(key, minlength=G * P + 1)[: G * P]
-    offsets = torch.zeros(G * P + 1, dtype=torch.int32, device=idx.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return offsets, order
+    base = torch.arange(G, device=idx.device, dtype=torch.int32)[:, None, None] * P
+    live = (idx >= 0) & (idx < P) & (wts != 0)
+    key = torch.where(live, base + idx, G * P).reshape(-1)
+    rows, order = torch.sort(key, stable=True)
+    return TapLut(rows, order.to(torch.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_workspace(G: int, P: int, N: int) -> int:
+    """Bytes of scratch the sort of G*N*4 taps takes (a host-side query)."""
+    lib = _library()
+    nbytes = ctypes.c_size_t()
+    _raise_on(lib, lib.grouped_tap_lut_workspace(G, P, N, ctypes.byref(nbytes)), "tap_lut")
+    return nbytes.value
+
+
+def tap_lut(idx: torch.Tensor, wts: torch.Tensor, P: int) -> TapLut:
+    """The scatter kernels' inverse LUT, rebuilt each call: one int32 key a
+    tap and one stable radix sort over the key's bits (``csrc/grouped_taps.cu``),
+    with no counts and no offsets, so nothing is read back to the host.
+    idx/wts [G, N, 4] int32/float32; see :class:`TapLut`."""
+    G, N = idx.shape[:2]
+    if not _check("tap_lut", (G, P, 1), torch.float32, idx, wts):
+        return tap_lut_ref(idx, wts, P)
+    lib = _library()
+    nbytes = _lut_workspace(G, P, N)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=idx.device)
+    lut = torch.empty((2, G * N * 4), dtype=torch.int32, device=idx.device)
+    with torch.cuda.device(idx.device):
+        rc = lib.grouped_tap_lut_launch(
+            idx.data_ptr(), wts.data_ptr(), lut[0].data_ptr(), lut[1].data_ptr(), work.data_ptr(), nbytes,
+            G, P, N, torch.cuda.current_stream(idx.device).cuda_stream,
+        )
+    _raise_on(lib, rc, "tap_lut")
+    return TapLut(lut[0], lut[1])
+
+
+def _carry(lut: TapLut, idx: torch.Tensor, K: int) -> torch.Tensor:
+    """The scatter kernels' scratch: two partial rows a chunk of taps."""
+    if not (lut.rows.device == lut.order.device == idx.device and lut.rows.dtype == lut.order.dtype == torch.int32
+            and lut.rows.shape == lut.order.shape == (idx.numel(),)):
+        raise ValueError("the scatter kernels want the TapLut that tap_lut builds from their idx and wts")
+    chunks = -(-lut.rows.numel() // CHUNK_TAPS)
+    return torch.empty((chunks, 2, K), dtype=torch.float32, device=lut.rows.device)
 
 
 def scatter_tapdot_grouped(
-    maps: torch.Tensor, gout: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor
+    maps: torch.Tensor, gout: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, lut: Optional[TapLut] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both gradients of :func:`sample_tiles_grouped` in one pass.
 
     maps [G, P, K] and gout [G, N, K] in the compute dtype (float32 or
-    bfloat16, the same for both); idx/wts [G, N, 4]. Returns
-    ``(dmaps [G, P, K] float32, d_wts [G, N, 4] float32)``. Deterministic:
-    the kernel walks source rows over :func:`inverse_taps` and never adds
-    across threads. ``scatter_tapdot_grouped.launches`` counts launches.
+    bfloat16, the same for both); idx/wts [G, N, 4]; ``lut``:
+    :func:`tap_lut` of these idx/wts, built here when None (given, the
+    call times the walk alone). Returns
+    ``(dmaps [G, P, K] float32, d_wts [G, N, 4] float32)``. Deterministic,
+    with no float atomics. Taps of weight 0 get their d_wts and add nothing
+    to dmaps (where ``gout`` holds an inf or a NaN at such a tap's sample,
+    the plain version gives NaN, 0 * inf, in that tap's row, and the kernel
+    a finite value: they agree for finite cotangents).
+    ``scatter_tapdot_grouped.launches`` counts its calls on the card, each
+    one launch of the walk and one of the carries.
     """
     _check_gout("scatter_tapdot_grouped", gout, idx, maps.shape[-1], maps.dtype)
     if not _check("scatter_tapdot_grouped", maps.shape, maps.dtype, idx, wts, maps, gout):
         return scatter_tapdot_grouped_ref(maps, gout, idx, wts)
     G, P, K = maps.shape
-    offsets, order = inverse_taps(idx, P)
+    N = idx.shape[1]
+    lut = tap_lut(idx, wts, P) if lut is None else lut
     dmaps = torch.empty((G, P, K), dtype=torch.float32, device=maps.device)
-    d_wts = torch.zeros(wts.shape, dtype=torch.float32, device=maps.device)
+    d_wts = torch.empty(wts.shape, dtype=torch.float32, device=maps.device)
+    carry = _carry(lut, idx, K)
     lib = _library()
     with torch.cuda.device(maps.device):
         rc = lib.grouped_scatter_tapdot_launch(
-            maps.data_ptr(), gout.data_ptr(), wts.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-            dmaps.data_ptr(), d_wts.data_ptr(), G, P, K, _DTYPE_CODE[maps.dtype],
-            torch.cuda.current_stream(maps.device).cuda_stream,
+            maps.data_ptr(), gout.data_ptr(), wts.data_ptr(), idx.data_ptr(), lut.rows.data_ptr(),
+            lut.order.data_ptr(), dmaps.data_ptr(), carry.data_ptr(), d_wts.data_ptr(), G, P, N, K,
+            CHUNK_TAPS, _DTYPE_CODE[maps.dtype], torch.cuda.current_stream(maps.device).cuda_stream,
         )
     _raise_on(lib, rc, "scatter_tapdot_grouped")
     scatter_tapdot_grouped.launches += 1
@@ -235,34 +292,34 @@ scatter_tapdot_grouped.launches = 0
 
 
 def scatter_taps_grouped(
-    gout: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, P: int
+    gout: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, P: int, lut: Optional[TapLut] = None
 ) -> torch.Tensor:
     """dmaps alone: the transpose of :func:`sample_tiles_grouped`.
 
     gout [G, N, K] float32/bfloat16 (the compute dtype); idx/wts
-    [G, N, 4]; P rows a map. Returns dmaps [G, P, K] float32, equal bit
-    for bit to :func:`scatter_tapdot_grouped`'s: the same walk of source
-    rows over :func:`inverse_taps`, without the tap dots and without the
-    taps of weight 0, which add nothing to a finite cotangent. (Where
-    ``gout`` holds an inf or a NaN at a sample with a tap of weight 0, the
-    fused kernel and the plain version give NaN, 0 * inf, in that tap's
-    row, and this kernel a finite value: the equality is for finite
-    cotangents.) It needs no maps.
-    ``scatter_taps_grouped.launches`` counts launches.
+    [G, N, 4]; P rows a map; ``lut`` as for
+    :func:`scatter_tapdot_grouped`. Returns dmaps [G, P, K] float32, equal
+    bit for bit to :func:`scatter_tapdot_grouped`'s: the same sort, the
+    same chunks, the same order of addition, taps of weight 0 left out as
+    there. It needs no maps.
+    ``scatter_taps_grouped.launches`` counts its calls on the card, each
+    one launch of the walk and one of the carries.
     """
     if gout.ndim != 3:
         raise ValueError(f"scatter_taps_grouped wants gout [G, N, K], got {tuple(gout.shape)}")
-    G, _, K = gout.shape
+    G, N, K = gout.shape
     _check_gout("scatter_taps_grouped", gout, idx, K, gout.dtype)
     if not _check("scatter_taps_grouped", (G, P, K), gout.dtype, idx, wts, gout):
         return scatter_taps_grouped_ref(gout, idx, wts, P)
-    offsets, order = inverse_taps(idx, P, live=wts != 0)
+    lut = tap_lut(idx, wts, P) if lut is None else lut
     dmaps = torch.empty((G, P, K), dtype=torch.float32, device=gout.device)
+    carry = _carry(lut, idx, K)
     lib = _library()
     with torch.cuda.device(gout.device):
         rc = lib.grouped_scatter_taps_launch(
-            gout.data_ptr(), wts.data_ptr(), order.data_ptr(), offsets.data_ptr(), dmaps.data_ptr(),
-            G, P, K, _DTYPE_CODE[gout.dtype], torch.cuda.current_stream(gout.device).cuda_stream,
+            gout.data_ptr(), wts.data_ptr(), lut.rows.data_ptr(), lut.order.data_ptr(), dmaps.data_ptr(),
+            carry.data_ptr(), G, P, N, K, CHUNK_TAPS, _DTYPE_CODE[gout.dtype],
+            torch.cuda.current_stream(gout.device).cuda_stream,
         )
     _raise_on(lib, rc, "scatter_taps_grouped")
     scatter_taps_grouped.launches += 1
