@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (vsta_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline DIR   # the dense warp kernels of the checkout in DIR beside these
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -10,9 +11,12 @@ Phases, each of which raises on failure (exit code != 0):
    source, all started together);
 3. warp kernel vs plain version at the flagship warp shapes (V=7,
    P=34*60, N=120*360, K=16*128 serving and K=2*128 training, LUT from
-   ring cameras): each case's max error, the kernel's time, its plain
-   version's, the library yardstick's (torch.sparse.mm) and the least time the card
-   could take;
+   ring cameras; 8x8 tiles of the 360-wide grid as the model passes it,
+   and runs of 64 cells without it; random taps whose tiles fill many
+   pieces of the weight tile), every case launched twice and bit-equal,
+   the distinct source rows a tile touches: each case's max error, the
+   kernel's time, its plain version's, the library yardstick's
+   (torch.sparse.mm) and the least time the card could take;
 4. the grouped sampler's four kernels vs plain versions (sample_tiles_grouped,
    scatter_tapdot_grouped, scatter_taps_grouped, taps_dot_grouped) at the
    shapes the training paths give them: the calibrated warps' backward
@@ -60,15 +64,19 @@ Phases, each of which raises on failure (exit code != 0):
    with per-frame cameras (warp_views_sum once forward, the grouped
    sampler at G = 14 backward) and FUSION attn; a small f32 train step of
    each family on the card against the CPU;
-7. the dense per-frame warp warp_views_sum vs its plain version at B = 16
-   and 2, V = 7, P = 2,040, N = 43,200, C = 128 (bf16 and f32 maps, ragged
-   C, an all-blind frame on poisoned maps, non-finite coordinates), with
-   the same readings; the grouped sampler's kernels at the per-frame
+7. the dense per-frame warp warp_views_sum vs its plain version at B = 16,
+   2 and 1, V = 7, P = 2,040, N = 43,200, C = 128 (bf16 and f32 maps,
+   ragged C, an all-blind frame on poisoned maps, non-finite coordinates,
+   random taps), every case twice and bit-equal, with the same readings;
+   the grouped sampler's kernels at the per-frame
    backward's shapes (G = 14 and 112, K = 128) inside phase 4;
 8. the ablation variants of the warp kernel (warp_tiles_variant: full,
    const_weights, row0, no_gather) at K = 2,048, bf16 and f32, each against
    its plain version, 'full' bit-equal to warp_tiles, and one line of the
-   four times.
+   four times;
+9. determinism: the deform family's residual upsample backward twice,
+   bit-equal, and the ops that torch.use_deterministic_algorithms(True,
+   warn_only=True) names in one train step of each config.
 
 Prints the kernels JSON line (eight kernels), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -199,12 +207,38 @@ def hold(name: str, got: torch.Tensor, ref: torch.Tensor, rule: str) -> float:
     return err
 
 
+def random_taps(dev, lead, N, P, seed):
+    """idx/wts [*lead, N, 4] with every tap on a random row and a random
+    weight (a fifth of them 0): every tile touches hundreds of distinct
+    rows, more than one piece of the kernels' weight tile holds."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, P, (*lead, N, 4), generator=g, device=dev, dtype=torch.int32)
+    wts = torch.rand((*lead, N, 4), generator=g, device=dev)
+    return idx, torch.where(wts < 0.2, torch.zeros_like(wts), wts)
+
+
+def tile_stats(label, idx, wts, P, grid_w):
+    """Log the distinct source rows a tile of the warp kernels touches
+    (over all views of one frame): what their shared memory is sized for."""
+    from vsta_tpu_torch.ops.warp_views_cuda import A_SLOTS, distinct_rows_per_tile
+
+    T = distinct_rows_per_tile(idx, wts, P, grid_w).float()
+    live = int(((wts != 0) & (idx >= 0) & (idx < P)).sum())
+    padded = float(((T + 15) // 16 * 16).clamp_min(16).sum()) * 64
+    tiling = f"8x8 of a {grid_w}-wide grid" if grid_w else "runs of 64 cells"
+    log(f"[tiles] {label} ({tiling}): {T.numel()} tiles, distinct rows a tile mean {float(T.mean()):.1f} max "
+        f"{int(T.max())} (weight-tile piece {A_SLOTS[1]} slots, {A_SLOTS[3]} with 3 planes: tiles over it "
+        f"{int((T > A_SLOTS[1]).sum())} / {int((T > A_SLOTS[3]).sum())}); padded products / live taps "
+        f"{padded / max(live, 1):.2f}")
+
+
 def kernel_phase(dev):
     from vsta_tpu_torch.ops.warp import precompute_warp_lut
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
     from vsta_tpu_torch.utils.timing import cuda_ms
 
     V, P, K = 7, 34 * 60, WARP_K
+    Wb = BEV_HW[1]
     coords = flagship_lut(dev)
     N = coords.shape[1]
     idx, wts = precompute_warp_lut(coords, (34, 60))
@@ -213,12 +247,14 @@ def kernel_phase(dev):
     bf = f32.to(torch.bfloat16)
     errs = {}
 
-    def compare(name, feats, i, w, out_dtype, rule):
-        got = warp_tiles(feats, i, w, out_dtype=out_dtype)
+    def compare(name, feats, i, w, out_dtype, rule, grid_w=Wb):
+        got = warp_tiles(feats, i, w, out_dtype=out_dtype, grid_w=grid_w)
         torch.cuda.synchronize()
         ref = warp_tiles_ref(feats, i, w, out_dtype=out_dtype)
         check(got.dtype == out_dtype and got.shape == ref.shape, f"{name}: shape/dtype")
         errs[name] = hold(name, got, ref, rule)
+        again = torch.equal(got, warp_tiles(feats, i, w, out_dtype=out_dtype, grid_w=grid_w))
+        check(again, f"{name}: two launches differ")
 
     compare(f"bf16->bf16 K={K}", bf, idx, wts, torch.bfloat16, "bf16")
     compare(f"f32->f32 K={K}", f32, idx, wts, torch.float32, "f32")
@@ -241,6 +277,20 @@ def kernel_phase(dev):
     # the training forward's shape: batch 2 x 128 channels, resident dispatch
     bf_train = bf[..., :TRAIN_K].contiguous()
     compare(f"bf16->bf16 K={TRAIN_K} (training forward)", bf_train, idx, wts, torch.bfloat16, "bf16")
+    # without the grid's width: runs of 64 cells, up to 236 rows a tile,
+    # three pieces of the weight tile
+    compare(f"bf16->bf16 K={K}, runs of 64 cells", bf, idx, wts, torch.bfloat16, "bf16", grid_w=None)
+    compare(f"f32->f32 K={TRAIN_K}, runs of 64 cells", f32[..., :TRAIN_K].contiguous(), idx, wts, torch.float32,
+            "f32", grid_w=None)
+    # random taps: hundreds of rows a tile, the weight tile in many pieces
+    ridx, rwts = random_taps(dev, (V,), N, P, seed=8)
+    compare(f"random taps bf16->bf16 K={TRAIN_K}", bf_train, ridx, rwts, torch.bfloat16, "bf16")
+    compare("random taps f32->f32 K=128", f32[..., :128].contiguous(), ridx, rwts, torch.float32, "f32")
+    compare("random taps ragged K=100 bf16->f32", bf[..., :100].contiguous(), ridx, rwts, torch.float32, "f32")
+    log("[kernel] warp_tiles: every case above launched twice, bit-equal")
+    tile_stats("the flagship LUT", idx, wts, P, Wb)
+    tile_stats("the flagship LUT", idx, wts, P, None)
+    tile_stats("random taps", ridx, rwts, P, Wb)
 
     # timing at the main path's shapes
     nz = wts != 0
@@ -254,7 +304,7 @@ def kernel_phase(dev):
         (f"warp_tiles K={TRAIN_K} (training forward, resident dispatch)", bf_train, torch.bfloat16, None),
     ):
         Kf = feats.shape[-1]
-        ms = cuda_ms(warp_tiles, feats, idx, wts, out_dtype=out_dtype, warmup=5, iters=50)
+        ms = cuda_ms(warp_tiles, feats, idx, wts, out_dtype=out_dtype, grid_w=Wb, warmup=5, iters=50)
         plain_ms = cuda_ms(warp_tiles_ref, feats, idx, wts, out_dtype=out_dtype, warmup=1, iters=5)
         csr = coo.to(feats.dtype).to_sparse_csr()
         dense = feats.reshape(V * P, Kf)
@@ -281,6 +331,13 @@ def kernel_phase(dev):
         )
         if replaces is not None:  # the K=256 shape is row 1's kernel again: logged, not a new entry
             entries.append(entry)
+    # batch 1's shape, and the tiling without the grid's width, beside
+    more = {
+        "K=128 (batch 1)": cuda_ms(warp_tiles, bf[..., :128].contiguous(), idx, wts, out_dtype=torch.bfloat16,
+                                   grid_w=Wb, warmup=5, iters=50),
+        f"K={K}, runs of 64 cells": cuda_ms(warp_tiles, bf, idx, wts, out_dtype=torch.bfloat16, warmup=5, iters=50),
+    }
+    log("[kernel] warp_tiles bf16->bf16, ms a launch: " + json.dumps({k: round(v, 4) for k, v in more.items()}))
     return entries
 
 
@@ -303,8 +360,10 @@ def perframe_kernel_phase(dev):
     bf = f32.to(torch.bfloat16)
     errs = {}
 
+    Wb = BEV_HW[1]
+
     def compare(name, feats, i, w, rule="f32", blind=None):
-        got = warp_views_sum(feats, i, w)
+        got = warp_views_sum(feats, i, w, grid_w=Wb)
         torch.cuda.synchronize()
         ref = warp_views_sum_ref(feats, i, w)
         check(got.dtype == torch.float32 and got.shape == ref.shape == (feats.shape[0], N, feats.shape[-1]),
@@ -312,6 +371,7 @@ def perframe_kernel_phase(dev):
         if blind is not None:
             hold(f"{name}, the blind frame", got[blind], ref[blind], "zero")
         errs[name] = hold(name, got, ref, rule)
+        check(torch.equal(got, warp_views_sum(feats, i, w, grid_w=Wb)), f"{name}: two launches differ")
 
     compare("warp_views_sum bf16 B=16 C=128", bf, idx, wts)
     compare("warp_views_sum f32 B=16 C=128", f32, idx, wts)
@@ -335,6 +395,13 @@ def perframe_kernel_phase(dev):
     bidx, bwts = precompute_warp_lut(bad, (34, 60))
     compare("warp_views_sum non-finite coords f32", f32[:2].contiguous(), bidx, bwts)
     compare("warp_views_sum non-finite coords bf16", bf[:2].contiguous(), bidx, bwts)
+    ridx, rwts = random_taps(dev, (2, V), N, P, seed=9)
+    compare("warp_views_sum random taps bf16 B=2", bf[:2].contiguous(), ridx, rwts)
+    compare("warp_views_sum random taps f32 B=2", f32[:2].contiguous(), ridx, rwts)
+    log("[perframe-kernel] warp_views_sum: every case above launched twice, bit-equal")
+    for b in (0, 1):
+        tile_stats(f"the per-frame LUT, frame {b}", idx[b], wts[b], P, Wb)
+    tile_stats("random taps, frame 0", ridx[0], rwts[0], P, Wb)
 
     def measure(feats, i, w, err_key):
         Bm = feats.shape[0]
@@ -342,7 +409,7 @@ def perframe_kernel_phase(dev):
         nnz = int(nz.sum())
         rows_g = torch.arange(Bm * V, device=dev).reshape(Bm, V, 1, 1) * P + i
         rows = torch.unique(rows_g[nz]).numel()
-        ms = cuda_ms(warp_views_sum, feats, i, w, warmup=3, iters=20)
+        ms = cuda_ms(warp_views_sum, feats, i, w, grid_w=Wb, warmup=3, iters=20)
         plain_ms = cuda_ms(warp_views_sum_ref, feats, i, w, warmup=1, iters=3)
         # the library yardstick: one sparse product with the block-diagonal
         # CSR of the taps, [B*N, B*V*P] @ [B*V*P, C]
@@ -371,9 +438,11 @@ def perframe_kernel_phase(dev):
         return reading
 
     two = tuple(t[:2].contiguous() for t in (bf, idx, wts))
+    one = tuple(t[:1].contiguous() for t in (bf, idx, wts))
     readings = [
         measure(bf, idx, wts, "warp_views_sum bf16 B=16 C=128"),
         measure(*two, "warp_views_sum bf16 B=2 C=128 (training)"),
+        measure(*one, "warp_views_sum bf16 B=1 C=128 (batch 1)"),
         measure(f32, idx, wts, "warp_views_sum f32 B=16 C=128"),
     ]
     first = readings[0]
@@ -396,6 +465,7 @@ def ablation_phase(dev):
     from vsta_tpu_torch.utils.timing import cuda_ms
 
     V, P, K = 7, 34 * 60, WARP_K
+    Wb = BEV_HW[1]
     coords = flagship_lut(dev)
     N = coords.shape[1]
     idx, wts = precompute_warp_lut(coords, (34, 60))
@@ -406,13 +476,13 @@ def ablation_phase(dev):
     for feats, out_dtype, rule in ((bf, torch.bfloat16, "bf16"), (f32, torch.float32, "f32")):
         tag = str(out_dtype).split(".")[-1]
         for variant in wc.VARIANTS:
-            got = wc.warp_tiles_variant(feats, idx, wts, variant, out_dtype=out_dtype)
+            got = wc.warp_tiles_variant(feats, idx, wts, variant, out_dtype=out_dtype, grid_w=Wb)
             torch.cuda.synchronize()
             ref = wc.warp_tiles_variant_ref(feats, idx, wts, variant, out_dtype=out_dtype)
             check(got.shape == ref.shape == (N, K) and got.dtype == out_dtype, f"{variant}: shape/dtype")
             worst = max(worst, hold(f"warp_tiles_variant {variant} {tag} K={K}", got, ref, rule))
-        same = torch.equal(wc.warp_tiles_variant(feats, idx, wts, "full", out_dtype=out_dtype),
-                           wc.warp_tiles(feats, idx, wts, out_dtype=out_dtype))
+        same = torch.equal(wc.warp_tiles_variant(feats, idx, wts, "full", out_dtype=out_dtype, grid_w=Wb),
+                           wc.warp_tiles(feats, idx, wts, out_dtype=out_dtype, grid_w=Wb))
         log(f"[ablation] 'full' {tag} bit-equal to warp_tiles: {same}")
         check(same, f"the 'full' variant differs from warp_tiles ({tag})")
     try:
@@ -430,9 +500,10 @@ def ablation_phase(dev):
     as_sparse = {"full": (idx, wts), "const_weights": (idx, torch.full_like(wts, 0.25)), "row0": (torch.zeros_like(idx), wts)}
     for feats, out_dtype in ((bf, torch.bfloat16), (f32, torch.float32)):
         tag = str(out_dtype).split(".")[-1]
-        times[tag] = {v: cuda_ms(wc.warp_tiles_variant, feats, idx, wts, v, out_dtype=out_dtype, warmup=3, iters=30)
-                      for v in wc.VARIANTS}
-        times[tag]["warp_tiles"] = cuda_ms(wc.warp_tiles, feats, idx, wts, out_dtype=out_dtype, warmup=3, iters=30)
+        times[tag] = {v: cuda_ms(wc.warp_tiles_variant, feats, idx, wts, v, out_dtype=out_dtype, grid_w=Wb,
+                                 warmup=3, iters=30) for v in wc.VARIANTS}
+        times[tag]["warp_tiles"] = cuda_ms(wc.warp_tiles, feats, idx, wts, out_dtype=out_dtype, grid_w=Wb,
+                                           warmup=3, iters=30)
         library[tag] = {"no_gather": None}
         dense = feats.reshape(V * P, K)
         for variant, (i, w) in as_sparse.items():
@@ -446,8 +517,8 @@ def ablation_phase(dev):
     live, taps = int((wts != 0).sum()), wts.numel()
     for tag, t in times.items():
         log(f"[ablation] K={K} {tag}, ms a launch: " + json.dumps({k: round(v, 4) for k, v in t.items()})
-            + f" ({live} live taps of {taps}: const_weights gathers them all; row0 keeps the LUT walk and the "
-              f"weights but reads one cached row a view; no_gather reads no map); library_ms(sparse.mm, the "
+            + f" ({live} live taps of {taps}: const_weights stages every tap's row; row0 loads the taps and applies "
+              f"the weights but stages one row a view; no_gather reads no map); library_ms(sparse.mm, the "
               f"variant's CSR): " + json.dumps({k: v and round(v, 4) for k, v in library[tag].items()}))
     log(f"[ablation] sparse.mm against the variants' plain versions: max_abs_err / max|ref| = {lib_err:.3e}")
     plain_ms = cuda_ms(wc.warp_tiles_variant_ref, bf, idx, wts, "full", out_dtype=torch.bfloat16, warmup=1, iters=5)
@@ -856,7 +927,7 @@ def grouped_phase(dev):
             (flag, f"sample bf16 K={K}", True), (query, "sample bf16 K=128", True),
             (s4, "sample deform G=56 N=10800 K=32 bf16", True), (s4b16, "sample deform G=448 N=10800 K=32 bf16", True),
             (s1, "sample deform G=56 N=172800 K=32 bf16", True),
-            (pf14, f"sample per-frame G=14 N={N} K=128 bf16", True), (pf112, f"sample per-frame G=112 N={N} K=128 bf16", False),
+            (pf14, f"sample per-frame G=14 N={N} K=128 bf16", True), (pf112, f"sample per-frame G=112 N={N} K=128 bf16", True),
             (wide14, f"sample unfused G=14 N={N} K=1280 bf16", True)]),
         ("taps_dot_grouped", 1125, [
             (s1, "d_wts5 deform G=56 N=172800 K=32 bf16", True), (s4, "d_wts5 deform G=56 N=10800 K=32 bf16", True),
@@ -1606,6 +1677,56 @@ def fusion_training_phase(dev):
     )
 
 
+def determinism_phase(dev):
+    """Training gradients run to run. The deform family's residual
+    upsample: its backward twice at the flagship's shape, bit for bit.
+    Then one train step (forward and backward) of each config under
+    torch.use_deterministic_algorithms(True, warn_only=True), which warns
+    for every op that has no deterministic implementation: the ops it
+    names are logged (it is switched off after; the library never sets
+    it). The spread of a whole call's gradients over two runs is the
+    training phases' "kernels run twice" reading."""
+    import warnings
+    from collections import Counter
+
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.models.bevnet import residual_upsample
+    from vsta_tpu_torch.training.state import batch_to_device, create_state, gradients, loss_fn
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    res = torch.randn((16, 30, 90, 128), generator=g, device=dev)
+    gout = torch.randn((16, *BEV_HW, 128), generator=g, device=dev)
+    grads = []
+    for _ in range(2):
+        leaf = res.clone().requires_grad_(True)
+        residual_upsample(leaf, BEV_HW).backward(gout)
+        grads.append(leaf.grad)
+    same = torch.equal(*grads)
+    log(f"[determinism] residual_upsample backward, f32 [16, 30, 90, 128] -> {BEV_HW}, run twice: bit-equal {same}")
+    check(same, "the residual upsample's backward differs between two runs")
+    del res, gout, grads
+    for label, path in (("deform", DEFORM), ("concat", FLAGSHIP)):
+        cfg = load_config(str(path))
+        state = create_state(cfg, seed=0, device="cuda", steps_per_epoch=100)
+        b = batch_to_device(train_batch(cfg, cfg.data.batch_size, 0), dev)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                gradients(state.model, loss_fn(cfg, state.model, b)["total_loss"])
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        names = Counter(" ".join(str(w.message).split())[:200] for w in caught)
+        log(f"[determinism] one {label} train step under use_deterministic_algorithms(True, warn_only=True): "
+            f"{len(caught)} warnings, {len(names)} distinct" + ("" if names else " (no op without a deterministic "
+                                                                 "implementation)"))
+        for msg, n in names.most_common():
+            log(f"[determinism]   x{n}: {msg}")
+        del state, b
+    torch.cuda.empty_cache()
+
+
 SMALL_DEFORM = {"FUSION": "deform_attn", "WARP_IMPL": "fused", "ATTN_HEADS": 2, "ATTN_POINTS": 2, "ATTN_STRIDE": 2}
 
 
@@ -1698,6 +1819,76 @@ def small_model_phase(dev, family="concat"):
     check(d <= 1e-4, f"small {family} f32 model on the card disagrees with the CPU")
 
 
+def baseline_phase(dev, base_dir):
+    """The dense warp kernels of another checkout (``--baseline DIR``, such
+    as the parent commit unpacked) timed beside this one's, in turns (base,
+    this, this, base), at the main path's shapes, and their outputs
+    compared. The base's sources are built here with this checkout's nvcc
+    flags; a source without the grid-width argument has the C interface
+    from before it."""
+    import ctypes
+
+    from vsta_tpu_torch import kernels
+    from vsta_tpu_torch.ops.warp import precompute_warp_lut
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles
+    from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    base = {}
+    for name in ("warp_tiles", "warp_views_sum"):
+        src = Path(base_dir) / "vsta_tpu_torch" / "csrc" / f"{name}.cu"
+        lib = kernels.BUILD_DIR / f"libbaseline-{name}.so"
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)], check=True,
+                       capture_output=True, text=True)
+        fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
+        grid_arg = "int grid_w" in src.read_text()
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (6 + grid_arg) + [ctypes.c_void_p]
+        base[name] = (fn, grid_arg)
+    V, P, Wb = 7, 34 * 60, BEV_HW[1]
+    idx, wts = precompute_warp_lut(flagship_lut(dev), (34, 60))
+    N = idx.shape[1]
+    pidx, pwts = precompute_warp_lut(perframe_coords(dev, 16), (34, 60))
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = torch.randn((V, P, WARP_K), generator=g, device=dev)
+    pf32 = torch.randn((16, V, P, 128), generator=g, device=dev)
+    code = {torch.float32: 0, torch.bfloat16: 1}
+
+    def run_base(name, feats, i, w, out_dtype):
+        fn, grid_arg = base[name]
+        lead = (N, feats.shape[-1]) if name == "warp_tiles" else (feats.shape[0], N, feats.shape[-1])
+        out = torch.empty(lead, dtype=out_dtype, device=dev)
+        if name == "warp_tiles":
+            args = [V, P, N, feats.shape[-1], code[feats.dtype], code[out_dtype]]
+        else:
+            args = [feats.shape[0], V, P, N, feats.shape[-1], code[feats.dtype]]
+        rc = fn(feats.data_ptr(), i.data_ptr(), w.data_ptr(), out.data_ptr(), *args, *([Wb] if grid_arg else []),
+                torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"baseline {name} launch failed ({rc})")
+        return out
+
+    cases = [("warp_tiles", f"bf16 K={K}", f32[..., :K].to(torch.bfloat16).contiguous(), idx, wts, torch.bfloat16)
+             for K in (WARP_K, TRAIN_K, 128)]
+    cases.append(("warp_tiles", f"f32 K={WARP_K}", f32, idx, wts, torch.float32))
+    cases += [("warp_views_sum", f"bf16 B={B}", pf32[:B].to(torch.bfloat16).contiguous(), pidx[:B].contiguous(),
+               pwts[:B].contiguous(), torch.float32) for B in (16, 2, 1)]
+    cases.append(("warp_views_sum", "f32 B=16", pf32, pidx, pwts, torch.float32))
+    table = {}
+    for name, label, feats, i, w, out_dtype in cases:
+        if name == "warp_tiles":
+            this = lambda: warp_tiles(feats, i, w, out_dtype=out_dtype, grid_w=Wb)
+        else:
+            this = lambda: warp_views_sum(feats, i, w, grid_w=Wb)
+        other = lambda: run_base(name, feats, i, w, out_dtype)
+        diff = float((this().float() - other().float()).abs().max())
+        t = [cuda_ms(f, warmup=3, iters=20) for f in (other, this, this, other)]
+        table[f"{name} {label}"] = {"base_ms": [round(t[0], 4), round(t[3], 4)], "ms": [round(t[1], 4), round(t[2], 4)],
+                                    "max_abs_diff": diff}
+        log(f"[baseline] {name} {label}: base {t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms "
+            f"(base, this, this, base), outputs differ by {diff:.3e}")
+    print(json.dumps({"baseline": str(base_dir), "times": table}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1720,6 +1911,10 @@ def main() -> int:
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"[build] {name}: {ln.strip()}")
+
+    if "--baseline" in sys.argv:  # a comparison only: python3 chip_smoke.py --baseline DIR
+        baseline_phase(dev, sys.argv[sys.argv.index("--baseline") + 1])
+        return 0
 
     t = time.perf_counter()
     entries = kernel_phase(dev)
@@ -1755,6 +1950,9 @@ def main() -> int:
     log(f"[fusion-train] phase {time.perf_counter() - t:.1f}s")
     for family in ("concat", "deform_attn", "concat per-frame", "attn"):
         small_train_phase(dev, family)
+    t = time.perf_counter()
+    determinism_phase(dev)
+    log(f"[determinism] phase {time.perf_counter() - t:.1f}s")
     # launches on the model paths, each path counted from 0 over its own
     # run: flagship serving (both warp dispatches) and training, deform
     # serving and training (ATTN_STRIDE 4 and 1), both families with

@@ -66,9 +66,11 @@ def _numpy_statement(variant, feats, idx, wts, dtype):
 
 
 def test_variants_are_the_kernel_sources_codes():
-    """VARIANTS' order is the Variant enum of csrc/warp_tiles.cu: the
-    wrapper passes the index."""
-    src = (Path(warp_cuda.__file__).resolve().parent.parent / "csrc" / "warp_tiles.cu").read_text()
+    """VARIANTS' order is the Variant enum that csrc/warp_tiles.cu takes
+    from csrc/warp_mma.cuh: the wrapper passes the index."""
+    csrc = Path(warp_cuda.__file__).resolve().parent.parent / "csrc"
+    assert '#include "warp_mma.cuh"' in (csrc / "warp_tiles.cu").read_text()
+    src = (csrc / "warp_mma.cuh").read_text()
     enum = re.search(r"enum Variant \{([^}]*)\}", src).group(1)
     codes = dict(re.findall(r"k(\w+) = (\d+)", enum))
     camel = {"full": "Full", "const_weights": "ConstWeights", "row0": "Row0", "no_gather": "NoGather"}

@@ -44,6 +44,7 @@ from vsta_tpu_torch.convert import (
     batch_stats_from_flax, init_state_dict, params_from_flax, state_dict_from_flax,
 )
 from vsta_tpu_torch.models import BEVNet
+from vsta_tpu_torch.models.bevnet import interp_matrix, residual_upsample
 from vsta_tpu_torch.models.fusion import DeformableFusion, ring_offsets
 from vsta_tpu_torch.ops import grouped_cuda as gc
 from vsta_tpu_torch.training.state import create_state, make_train_step
@@ -150,15 +151,34 @@ def _variables(cfg, seed):
 
 @pytest.mark.parametrize("src,dst", [((7, 11), (28, 44)), ((13, 21), (25, 41)), ((30, 90), (120, 360))])
 def test_residual_upsample_matches_jax_image_resize(rng, src, dst):
-    """F.interpolate(bilinear, align_corners=False) on NCHW against
-    jax.image.resize(bilinear) on NHWC, at an integer factor, at the
-    factor 25/13 of an odd grid strided by 2, and at the flagship's."""
+    """The port's residual_upsample (two products with fixed matrices) on
+    NHWC against jax.image.resize(bilinear), at an integer factor, at the
+    factor 25/13 of an odd grid strided by 2, and at the flagship's; its
+    matrices are JAX's weights bit for bit, and F.interpolate's (the op it
+    replaced) within float32 rounding."""
     x = rng.standard_normal((2, *src, 5)).astype(np.float32)
     want = jax.image.resize(jnp.asarray(x), (2, *dst, 5), method="bilinear")
-    got = F.interpolate(
-        torch.from_numpy(x).permute(0, 3, 1, 2), size=dst, mode="bilinear", align_corners=False, antialias=False
-    ).permute(0, 2, 3, 1)
+    got = residual_upsample(torch.from_numpy(x), dst)
+    assert got.dtype == torch.float32 and got.shape == (2, *dst, 5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    for n, m in zip(src, dst):
+        jw = np.asarray(jax.image.resize(jnp.eye(n, dtype=jnp.float32), (n, m), method="bilinear")).T
+        np.testing.assert_array_equal(interp_matrix(n, m).numpy(), jw)
+        fw = F.interpolate(torch.eye(n)[None], size=m, mode="linear", align_corners=False)[0].t()
+        np.testing.assert_allclose(interp_matrix(n, m).numpy(), fw.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("src,dst", [((7, 11), (28, 44)), ((13, 21), (25, 41)), ((30, 90), (120, 360))])
+def test_residual_upsample_vjp_matches_jax(rng, src, dst):
+    """The upsample's backward (two products with the transposed matrices)
+    against jax.vjp of jax.image.resize, at the same three sizes."""
+    x = rng.standard_normal((2, *src, 5)).astype(np.float32)
+    g = rng.standard_normal((2, *dst, 5)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, *dst, 5), method="bilinear"), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    leaf = torch.from_numpy(x).requires_grad_(True)
+    residual_upsample(leaf, dst).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("heads,points", [(4, 4), (2, 2), (3, 1)])

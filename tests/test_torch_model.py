@@ -13,8 +13,11 @@ import torch
 from vsta_tpu.models.bevnet import positional_encoding as j_pos
 from vsta_tpu.models.encoders.efficientnet import EfficientNetFeatures as JTrunk
 from vsta_tpu.models.encoders.encoder import ViewEncoder as JEncoder
+from vsta_tpu.models.encoders.encoder import build_backbone as j_build_backbone
 from vsta_tpu.models.heads import BEVDetectorHead as JHead
+from vsta_tpu_torch import config as tcfg
 from vsta_tpu_torch.convert import _bn, _conv, _mbconv
+from vsta_tpu_torch.models import BEVNet
 from vsta_tpu_torch.models.bevnet import positional_encoding as t_pos
 from vsta_tpu_torch.models.encoders.efficientnet import B0_STAGES, EfficientNetFeatures
 from vsta_tpu_torch.models.encoders.encoder import ViewEncoder
@@ -150,3 +153,21 @@ def test_positional_encoding_matches_jax():
     np.testing.assert_allclose(
         t_pos(12, 36, bounds).numpy(), np.asarray(j_pos(12, 36, bounds)), atol=1e-5
     )
+
+
+@pytest.mark.parametrize("norm", ["group", "layer"])
+def test_norm_other_than_batch_on_efficientnet_raises_in_both_packages(norm):
+    """MODEL.NORM reaches the encoder: on EfficientNet-B0 anything but
+    'batch' raises ValueError with the reference's message, in the JAX
+    package (build_backbone, called by its ViewEncoder) and in the port
+    (BEVNet.from_config), instead of a BatchNorm model built in silence."""
+    with pytest.raises(ValueError, match="MODEL.NORM") as want:
+        j_build_backbone("efficientnet_b0", norm=norm)
+    raw = {"DATA": {"IMG_SIZE": [3, 64, 96], "VIEWS": 2},
+           "MODEL": {"BACKBONE": "efficientnet_b0", "NORM": norm, "FEAT_DIM": 16, "BEV_SIZE": [32, 16, 24],
+                     "BEV_PROJ_CH": 16, "HEAD_MID1": 64, "HEAD_MID2": 32}}
+    with pytest.raises(ValueError, match="MODEL.NORM") as got:
+        BEVNet.from_config(tcfg.from_dict(raw))
+    assert str(got.value) == str(want.value)
+    raw["MODEL"]["NORM"] = "batch"
+    assert isinstance(BEVNet.from_config(tcfg.from_dict(raw)).encoder, ViewEncoder)

@@ -446,15 +446,14 @@ def test_deform_per_frame_fusion_gradients_match_jax(interpret):
 # -- the train step ----------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def step():
-    """One call of both train steps (concat through the dense warp, a
-    calibration a frame): metrics, gradients, parameters, statistics of
-    JAX (``want``) and of the port (``got``)."""
-    raw = _raw({})
+def _train_step_pair(raw, weight_seed, batch_seed, interpret):
+    """One call of both train steps on the same weights and batch: metrics,
+    gradients, parameters, statistics of JAX (``want``) and of the port
+    (``got``). ``interpret``: the JAX model's Pallas kernels in interpret
+    mode; else its XLA path, the plain reference off the TPU."""
     cfg = jcfg.from_dict(raw)
-    batch = _batch(31)
-    model, v = _variables(cfg, seed=3)
+    batch = _batch(batch_seed)
+    model, v = _variables(cfg, seed=weight_seed)
     tx = joptim.build_optimizer(cfg, steps_per_epoch=SPE)
     jst = jstate.TrainState(
         step=jnp.zeros((), jnp.int32), params=v["params"], batch_stats=v["batch_stats"],
@@ -479,8 +478,8 @@ def step():
         return jax.grad(loss)(state.params)
 
     fn = jax.jit(lambda s, b: (*jstep(s, b), grads_of(s, b)))
-    jbevnet.FORCE_PALLAS_INTERPRET = True
-    jwarp.FORCE_GROUPED_INTERPRET = True
+    jbevnet.FORCE_PALLAS_INTERPRET = interpret
+    jwarp.FORCE_GROUPED_INTERPRET = interpret
     try:
         jst, metrics, grads = fn(jst, batch)
     finally:
@@ -515,6 +514,26 @@ def step():
     return SimpleNamespace(cfg=cfg, want=want, got=got, initial=initial)
 
 
+@pytest.fixture(scope="module")
+def step():
+    """One call of both train steps (concat through the dense warp, a
+    calibration a frame), the JAX side's Pallas kernels in interpret mode."""
+    return _train_step_pair(_raw({}), weight_seed=3, batch_seed=31, interpret=True)
+
+
+@pytest.fixture(scope="module")
+def deform_step():
+    """One call of both train steps of the deformable family with a
+    calibration a frame (the per-frame query warp and the sampler at
+    G = B * V groups, ATTN_STRIDE 2 with the residual upsample); the JAX
+    side through its XLA path. The seeds keep every sample off a pixel
+    border and every ReLU and clip off its corner, where the derivative
+    jumps and rounding decides the side: seeds that put one there move
+    single gradients (an offsets weight, a GroupNorm bias) by up to 4e-3
+    and, through the query, the encoder's."""
+    return _train_step_pair(_raw({"MODEL": DEFORM}), weight_seed=23, batch_seed=43, interpret=False)
+
+
 def _close(got, want, what):
     want = np.asarray(want, dtype=np.float32)
     got = got.detach().numpy()
@@ -522,25 +541,22 @@ def _close(got, want, what):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * float(np.abs(want).max()) + 1e-5, err_msg=what)
 
 
-def test_per_frame_train_step_losses_and_grad_norm_match_jax(step):
+def _check_losses(step):
     assert step.got[0].keys() == step.want[0].keys()
     for k, w in step.want[0].items():
         np.testing.assert_allclose(step.got[0][k], w, rtol=1e-4, err_msg=k)
     assert step.got[0]["grad_norm"] > 0
 
 
-def test_per_frame_train_step_gradients_match_jax(step):
+def _check_gradients(step, nonzero):
     assert step.got[1].keys() == step.want[1].keys()
     for k, w in step.want[1].items():
         _close(step.got[1][k], w, f"d/d {k}")
-    for k in ("view_proj", "encoder.proj.weight", "encoder.backbone.stem_conv.weight"):
+    for k in nonzero:
         assert float(step.got[1][k].abs().max()) > 1e-6, k
 
 
-def test_per_frame_train_step_updated_params_match_jax(step):
-    """As tests/test_torch_train.py: where gradient + decay is within the
-    gradient rule's tolerance of 0, Adam's first step has a sign of
-    rounding noise, and those elements are held to 2 * lr."""
+def _check_updated_params(step):
     lr, wd = step.cfg.train.lr, step.cfg.train.weight_decay
     assert step.got[2].keys() == step.want[2].keys()
     for k, w in step.want[2].items():
@@ -552,7 +568,45 @@ def test_per_frame_train_step_updated_params_match_jax(step):
     assert any(not torch.equal(step.got[2][k], step.initial[k]) for k in step.got[2])
 
 
-def test_per_frame_train_step_batch_stats_match_jax(step):
+def _check_batch_stats(step):
     assert step.got[3].keys() == step.want[3].keys()
     for k, w in step.want[3].items():
         _close(step.got[3][k], w, k)
+
+
+def test_per_frame_train_step_losses_and_grad_norm_match_jax(step):
+    _check_losses(step)
+
+
+def test_per_frame_train_step_gradients_match_jax(step):
+    _check_gradients(step, ("view_proj", "encoder.proj.weight", "encoder.backbone.stem_conv.weight"))
+
+
+def test_per_frame_train_step_updated_params_match_jax(step):
+    """As tests/test_torch_train.py: where gradient + decay is within the
+    gradient rule's tolerance of 0, Adam's first step has a sign of
+    rounding noise, and those elements are held to 2 * lr."""
+    _check_updated_params(step)
+
+
+def test_per_frame_train_step_batch_stats_match_jax(step):
+    _check_batch_stats(step)
+
+
+def test_per_frame_deform_train_step_losses_and_grad_norm_match_jax(deform_step):
+    _check_losses(deform_step)
+
+
+def test_per_frame_deform_train_step_gradients_match_jax(deform_step):
+    """Every parameter's gradient, the sampling heads' (which learn only
+    through the sampler's d_wts) among them."""
+    _check_gradients(deform_step, ("query_proj", "encoder.proj.weight", "deform_fusion.offsets.weight",
+                                   "deform_fusion.attn.weight", "encoder.backbone.stem_conv.weight"))
+
+
+def test_per_frame_deform_train_step_updated_params_match_jax(deform_step):
+    _check_updated_params(deform_step)
+
+
+def test_per_frame_deform_train_step_batch_stats_match_jax(deform_step):
+    _check_batch_stats(deform_step)

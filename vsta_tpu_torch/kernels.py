@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, loaded with :mod:`ctypes`. The build runs at first
 use, from the package's sources only, into ``build/kernels/`` beside the
 package (listed in ``.gitignore``); the library's file name carries a
-hash of its source, so an edited source is rebuilt.
+hash of its source and of the headers in ``csrc/``, so an edited source
+or header is rebuilt.
 """
 
 from __future__ import annotations
@@ -36,9 +37,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    header in ``csrc/`` (a source may include them)."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> Dict[str, str]:

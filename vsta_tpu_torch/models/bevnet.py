@@ -23,7 +23,7 @@ per-frame cameras (every frame warps under its own ``K``, ``Rt``):
   grouped sampler, in serving and training) is refined by
   :class:`~vsta_tpu_torch.models.fusion.DeformableFusion` on a query grid
   strided by ``ATTN_STRIDE``, whose residual is upsampled bilinearly in
-  f32 and added.
+  f32 (:func:`residual_upsample`) and added.
 * The unfused fusions, on the per-view BEV maps of
   :func:`~vsta_tpu_torch.ops.grouped_cuda.warp_views` (the encoder's
   projection applied): ``concat`` with ``WARP_IMPL: gather`` (the per-view
@@ -43,7 +43,6 @@ import math
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
@@ -80,6 +79,40 @@ def positional_encoding(
     )
 
 
+_INTERP: Dict[Tuple[int, int, str], torch.Tensor] = {}
+
+
+def interp_matrix(src: int, dst: int, device=None) -> torch.Tensor:
+    """[dst, src] float32 weights of half-pixel bilinear resampling along
+    one axis, as ``jax.image.resize(..., "bilinear")`` computes them for an
+    upsampling (its ``compute_weight_mat``, in float32: a triangle kernel
+    at ``(i + 0.5) * src / dst - 0.5``, each row divided by its sum, which
+    clamps at the edges). Built once per sizes and device, on the CPU."""
+    key = (src, dst, str(torch.device(device) if device is not None else "cpu"))
+    if key not in _INTERP:
+        f32 = torch.float32
+        inv_scale = torch.tensor(1.0 / (dst / src), dtype=f32)  # a double rounded once, as in JAX
+        sample = (torch.arange(dst, dtype=f32) + 0.5) * inv_scale - 0.5
+        w = (1.0 - (sample[:, None] - torch.arange(src, dtype=f32)[None, :]).abs()).clamp(min=0.0)
+        total = w.sum(dim=1, keepdim=True)
+        w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps, w / torch.where(total != 0, total, 1.0), 0.0)
+        inside = (sample >= -0.5) & (sample <= src - 0.5)
+        _INTERP[key] = torch.where(inside[:, None], w, 0.0).to(device)
+    return _INTERP[key]
+
+
+def residual_upsample(res: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of [B, Hs, Ws, C] float32 to [B, Hb, Wb, C], as
+    ``jax.image.resize(res, (B, Hb, Wb, C), "bilinear")`` upsamples: two
+    products with the fixed matrices of :func:`interp_matrix`, along W and
+    then H. Its backward is two more products: no atomics, so two runs on
+    the card give the same bits."""
+    Hb, Wb = size
+    rh = interp_matrix(res.shape[1], Hb, res.device)
+    rw = interp_matrix(res.shape[2], Wb, res.device)
+    return torch.einsum("hi,biwc->bhwc", rh, torch.einsum("wj,bijc->biwc", rw, res))
+
+
 class BEVNet(nn.Module):
     """Construct with :meth:`from_config`; ``forward(images, K, Rt)``."""
 
@@ -103,6 +136,7 @@ class BEVNet(nn.Module):
         attn_stride: int = 4,
         warp_impl: str = "pallas",
         static_cameras: bool = True,
+        norm: str = "batch",
     ):
         super().__init__()
         if fusion not in FUSIONS:
@@ -118,7 +152,7 @@ class BEVNet(nn.Module):
         # the view projection; every other fusion works on the projected maps
         self.fold_proj = fusion == "concat" and warp_impl in ("fused", "pallas")
         self.encoder = ViewEncoder(
-            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=self.fold_proj
+            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=self.fold_proj, norm=norm
         )
         if fusion == "concat":
             self.view_proj = nn.Parameter(torch.empty(views, feat_dim, bev_proj_ch))
@@ -168,6 +202,7 @@ class BEVNet(nn.Module):
             attn_stride=m.attn_stride,
             warp_impl=m.warp_impl,
             static_cameras=m.static_cameras,
+            norm=m.norm,
         )
 
     def train(self, mode: bool = True) -> "BEVNet":
@@ -248,10 +283,7 @@ class BEVNet(nn.Module):
             coords_b, depth_b, q = coords_b[:, :, ::s, ::s], depth_b[:, :, ::s, ::s], q_in[:, ::s, ::s]
         res = self.deform_fusion(feats, coords_b, q, depth_b, grouped=self.grouped)
         if s > 1:
-            res = F.interpolate(
-                res.float().permute(0, 3, 1, 2), size=(Hb, Wb), mode="bilinear",
-                align_corners=False, antialias=False,
-            ).permute(0, 2, 3, 1).to(q_in.dtype)
+            res = residual_upsample(res.float(), (Hb, Wb)).to(q_in.dtype)
         return res
 
     def _concat(self, feats, enc_pk, enc_pb, coords) -> torch.Tensor:

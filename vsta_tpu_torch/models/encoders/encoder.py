@@ -1,7 +1,9 @@
 """Per-view encoder: one shared backbone over all B*V images + 1x1 proj.
 
 images [B, V, H, W, 3] (NHWC, as the JAX package) -> [B, V, Hf, Wf, F].
-With ``fold_proj`` the 1x1 projection is not applied: the encoder returns
+``norm`` is MODEL.NORM: EfficientNet-B0 takes ``'batch'`` only, and any
+other value raises ``ValueError`` as the JAX package does. With
+``fold_proj`` the 1x1 projection is not applied: the encoder returns
 the raw pyramid map with the projection's kernel [C_raw, F] and bias [F],
 for the caller to fold into the next linear op. Internally the maps are
 NCHW tensors in channels-last memory, so the NHWC views are free.
@@ -28,12 +30,18 @@ class ViewEncoder(nn.Module):
         out_index: int = 2,
         dtype: torch.dtype = torch.float32,
         fold_proj: bool = False,
+        norm: str = "batch",
     ):
         super().__init__()
         if backbone != "efficientnet_b0":
             raise NotImplementedError(
                 f"backbone {backbone!r}: the port has efficientnet_b0 only; the "
                 "others are ROADMAP Queue 1, 'Other backbones'"
+            )
+        if norm != "batch":  # as the reference's build_backbone: only ResNets take another norm
+            raise ValueError(
+                f"MODEL.NORM={norm!r} is only supported for resnet backbones "
+                f"(got backbone={backbone!r})"
             )
         if not isinstance(out_index, int):
             raise NotImplementedError(

@@ -29,7 +29,7 @@ import torch
 from .. import kernels
 from .grouped_cuda import KERNELS, GroupedKernels, GroupedSample, warp_views
 from .warp import anchored_taps, flat_taps, pad_feat_br, precompute_warp_lut, tap_weights, warp_lut_sum
-from .warp_views_cuda import warp_views_sum
+from .warp_views_cuda import grid_width, warp_views_sum
 
 # the TPU dispatch between the two kernels (warp_pallas.py:537-544): the
 # VMEM-resident kernel, which stores the compute dtype, while the padded
@@ -62,14 +62,17 @@ def warp_out_dtype(V: int, P: int, K: int, compute_dtype: torch.dtype) -> torch.
 
 
 def warp_tiles_ref(
-    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, *, out_dtype: torch.dtype
+    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, *, out_dtype: torch.dtype,
+    grid_w: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`warp_tiles` (f32 accumulation)."""
+    """Plain PyTorch version of :func:`warp_tiles` (f32 accumulation);
+    ``grid_w``, the kernel's tiling, does not change the function."""
     return warp_lut_sum(feats_vpk, idx, wts).to(out_dtype)
 
 
 def warp_tiles_variant_ref(
-    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, variant: str, *, out_dtype: torch.dtype
+    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, variant: str, *, out_dtype: torch.dtype,
+    grid_w: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`warp_tiles_variant`: the same wrong
     thing each variant computes."""
@@ -92,9 +95,9 @@ def warp_tiles_variant_ref(
 def _library() -> ctypes.CDLL:
     """The built kernel library, its C functions typed (built on first use)."""
     lib = kernels.load("warp_tiles")
-    lib.warp_tiles_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.warp_tiles_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.warp_tiles_launch.restype = ctypes.c_int
-    lib.warp_tiles_variant_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.warp_tiles_variant_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.warp_tiles_variant_launch.restype = ctypes.c_int
     lib.warp_tiles_error_string.argtypes = [ctypes.c_int]
     lib.warp_tiles_error_string.restype = ctypes.c_char_p
@@ -120,7 +123,7 @@ def _check(feats_vpk, idx, wts, out_dtype):
         raise TypeError(f"warp_tiles wants int32 idx and float32 wts, got {idx.dtype}, {wts.dtype}")
 
 
-def _launch(feats_vpk, idx, wts, out_dtype, variant: int, name: str) -> Optional[torch.Tensor]:
+def _launch(feats_vpk, idx, wts, out_dtype, variant: int, name: str, grid_w) -> Optional[torch.Tensor]:
     """Check the inputs and launch the kernel's ``variant``; None for CPU
     tensors, which take the plain version."""
     _check(feats_vpk, idx, wts, out_dtype)
@@ -143,7 +146,7 @@ def _launch(feats_vpk, idx, wts, out_dtype, variant: int, name: str) -> Optional
         rc = lib.warp_tiles_variant_launch(
             feats_vpk.data_ptr(), idx.data_ptr(), wts.data_ptr(), out.data_ptr(),
             V, P, N, K, _DTYPE_CODE[feats_vpk.dtype], _DTYPE_CODE[out_dtype], variant,
-            torch.cuda.current_stream(dev).cuda_stream,
+            grid_width(N, grid_w), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         msg = lib.warp_tiles_error_string(rc).decode()
@@ -152,16 +155,19 @@ def _launch(feats_vpk, idx, wts, out_dtype, variant: int, name: str) -> Optional
 
 
 def warp_tiles(
-    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, *, out_dtype: torch.dtype
+    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, *, out_dtype: torch.dtype,
+    grid_w: Optional[int] = None,
 ) -> torch.Tensor:
     """Sum over views of the bilinear warp, batch folded into channels.
 
     feats_vpk [V, P, K] float32/bfloat16; idx [V, N, 4] int32 flat taps in
     [0, P); wts [V, N, 4] float32 (0 = masked tap). Returns [N, K] in
-    ``out_dtype``, accumulated in float32. ``warp_tiles.launches`` counts
-    kernel launches.
+    ``out_dtype``, accumulated in float32. ``grid_w``: the width of the BEV
+    grid the N cells fill row by row, so the kernel takes 8x8 tiles of it
+    (without it, runs of 64 cells: the same sums, more rows a tile).
+    ``warp_tiles.launches`` counts kernel launches.
     """
-    out = _launch(feats_vpk, idx, wts, out_dtype, 0, "warp_tiles")
+    out = _launch(feats_vpk, idx, wts, out_dtype, 0, "warp_tiles", grid_w)
     if out is None:
         return warp_tiles_ref(feats_vpk, idx, wts, out_dtype=out_dtype)
     warp_tiles.launches += 1
@@ -172,7 +178,8 @@ warp_tiles.launches = 0
 
 
 def warp_tiles_variant(
-    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, variant: str, *, out_dtype: torch.dtype
+    feats_vpk: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, variant: str, *, out_dtype: torch.dtype,
+    grid_w: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`warp_tiles` with one part of the kernel taken out
     (``variant``, one of :data:`VARIANTS`): wrong by design, for cost
@@ -181,7 +188,7 @@ def warp_tiles_variant(
     kernel launches."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown warp_tiles variant {variant!r}: one of {VARIANTS}")
-    out = _launch(feats_vpk, idx, wts, out_dtype, VARIANTS.index(variant), "warp_tiles_variant")
+    out = _launch(feats_vpk, idx, wts, out_dtype, VARIANTS.index(variant), "warp_tiles_variant", grid_w)
     if out is None:
         return warp_tiles_variant_ref(feats_vpk, idx, wts, variant, out_dtype=out_dtype)
     warp_tiles_variant.launches += 1
@@ -234,7 +241,7 @@ def fused_warp_proj_cuda(
             "bvhwc,vco->bvhwo", feats.to(compute_dtype), proj_kernel.to(compute_dtype)
         )
         idx, wts = precompute_warp_lut(coords.reshape(B, V, N, 2), (Hf, Wf))
-        out = views_sum(proj.reshape(B, V, P, C_out).contiguous(), idx, wts).reshape(B, Hb, Wb, C_out)
+        out = views_sum(proj.reshape(B, V, P, C_out).contiguous(), idx, wts, grid_w=Wb).reshape(B, Hb, Wb, C_out)
         if proj_bias is not None:
             out = out + proj_bias.to(out.dtype)
         return out.to(compute_dtype)
@@ -246,7 +253,7 @@ def fused_warp_proj_cuda(
     )
     warped = warp(
         proj.reshape(V, P, B * C_out).contiguous(), idx, wts,
-        out_dtype=warp_out_dtype(V, P, B * C_out, compute_dtype),
+        out_dtype=warp_out_dtype(V, P, B * C_out, compute_dtype), grid_w=Wb,
     )
     out = warped.reshape(N, B, C_out).permute(1, 0, 2).reshape(B, Hb, Wb, C_out)
     if proj_bias is not None:

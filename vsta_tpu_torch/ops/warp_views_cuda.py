@@ -18,6 +18,7 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -26,9 +27,20 @@ from .. import kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def warp_views_sum_ref(feats: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
+def grid_width(N: int, grid_w: Optional[int]) -> int:
+    """The grid width the kernels tile by (8x8 cells), or 0 for runs of 64
+    consecutive cells where none is given or it does not divide N."""
+    if grid_w is None or grid_w <= 0 or N % grid_w:
+        return 0
+    return grid_w
+
+
+def warp_views_sum_ref(
+    feats: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, grid_w: Optional[int] = None
+) -> torch.Tensor:
     """Plain PyTorch version of :func:`warp_views_sum`: float32 weights,
-    float32 products and sums, views then taps in order."""
+    float32 products and sums, views then taps in order (``grid_w``, the
+    kernel's tiling, does not change the function)."""
     B, V, P, C = feats.shape
     N = idx.shape[2]
     flat = feats.reshape(B * V * P, C)
@@ -41,10 +53,42 @@ def warp_views_sum_ref(feats: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor
     return out
 
 
+# the kernels' tile (csrc/warp_mma.cuh): 8 x 8 cells of a grid whose width
+# is given, else 64 consecutive cells; the weight tile holds A_SLOTS[n]
+# distinct source rows at once with n bf16 planes a weight (more are taken
+# piece by piece)
+TILE_CELLS = 64
+A_SLOTS = {1: 96, 3: 64}
+
+
+def tile_of_cells(N: int, grid_w: Optional[int] = None, device=None) -> torch.Tensor:
+    """[N] int64: the kernels' tile of each of the N cells."""
+    n = torch.arange(N, device=device)
+    gw = grid_width(N, grid_w)
+    if not gw:
+        return n // TILE_CELLS
+    return (n // gw // 8) * ((gw + 7) // 8) + (n % gw) // 8
+
+
+def distinct_rows_per_tile(idx: torch.Tensor, wts: torch.Tensor, P: int, grid_w: Optional[int] = None) -> torch.Tensor:
+    """[tiles] int64: how many distinct source rows (view, pixel) the live
+    taps of each tile touch over all views, for one frame's idx/wts
+    [V, N, 4]: the kernels' slot count ``T`` where no tap repeats a row of
+    its cell and view (the LUT's taps never do; a repeat takes a slot of
+    the next level), which sets how much of the weight tile and of the
+    staging a tile takes."""
+    V, N, _ = idx.shape
+    tile = tile_of_cells(N, grid_w, idx.device)
+    live = (wts != 0) & (idx >= 0) & (idx < P)
+    rows = torch.arange(V, device=idx.device)[:, None, None] * P + idx.long()
+    keys = torch.unique((tile[None, :, None] * (V * P) + rows)[live])
+    return torch.bincount(keys // (V * P), minlength=int(tile.max()) + 1)
+
+
 def _library() -> ctypes.CDLL:
     """The built kernel library, its C functions typed (built on first use)."""
     lib = kernels.load("warp_views_sum")
-    lib.warp_views_sum_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.warp_views_sum_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.warp_views_sum_launch.restype = ctypes.c_int
     lib.warp_views_sum_error_string.argtypes = [ctypes.c_int]
     lib.warp_views_sum_error_string.restype = ctypes.c_char_p
@@ -68,12 +112,16 @@ def _check(feats, idx, wts):
         raise TypeError(f"warp_views_sum wants int32 idx and float32 wts, got {idx.dtype}, {wts.dtype}")
 
 
-def warp_views_sum(feats: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
+def warp_views_sum(
+    feats: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, grid_w: Optional[int] = None
+) -> torch.Tensor:
     """Sum over views of the bilinear warp, one set of taps a frame.
 
     feats [B, V, P, C] float32/bfloat16; idx [B, V, N, 4] int32 flat taps
     in [0, P); wts [B, V, N, 4] float32 (0 = masked tap). Returns
-    [B, N, C] float32. ``warp_views_sum.launches`` counts kernel launches.
+    [B, N, C] float32. ``grid_w``: the width of the BEV grid the N cells
+    fill row by row, so the kernel takes 8x8 tiles of it (without it, runs
+    of 64 cells). ``warp_views_sum.launches`` counts kernel launches.
     """
     _check(feats, idx, wts)
     dev = feats.device
@@ -94,7 +142,7 @@ def warp_views_sum(feats: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor) ->
     with torch.cuda.device(dev):
         rc = lib.warp_views_sum_launch(
             feats.data_ptr(), idx.data_ptr(), wts.data_ptr(), out.data_ptr(),
-            B, V, P, N, C, _DTYPE_CODE[feats.dtype],
+            B, V, P, N, C, _DTYPE_CODE[feats.dtype], grid_width(N, grid_w),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
