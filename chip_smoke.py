@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (vsta_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --baseline DIR   # the dense warp kernels of the checkout in DIR beside these
+    python3 chip_smoke.py --baseline DIR   # kernel rows 1, 2, 4, 5, 7 of the checkout in DIR beside these
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -25,9 +25,15 @@ Phases, each of which raises on failure (exit code != 0):
    448, N=10,800 at ATTN_STRIDE 4 and 172,800 at 1, K=32), with ragged K,
    all-zero weights on poisoned maps, non-finite coordinates and hot rows
    (every sample at one coordinate: four rows of 43,200 taps a group);
+   sample_tiles_grouped bit-equal to its plain version in every case;
+   sample_tiles_grouped and taps_dot_grouped at every branch of their work
+   partition (K = 1, 2, 13, 26, 41, 82, 32, 128 and 1,280, bf16 and f32,
+   maps and cotangents aligned and at an odd element offset, N = 43,197:
+   short last blocks and output runs off 16 bytes), each launch's
+   partition as the library reports it equal to grouped_cuda's mirror;
    the scatters' inverse LUT (tap_lut) equal to its plain version,
    scatter_taps_grouped's dmaps bit-equal to the fused kernel's, two
-   launches of each bit-equal; the same readings for each, rows 3 and 6
+   launches of each of the four bit-equal; the same readings for each, rows 3 and 6
    split into the sort (lut_ms) and the walk (kernel_ms), row 3's library
    yardstick with its CSR built beforehand and inside the timed call; a
    sweep of the chunk size; one profiled call of each; both routes of the
@@ -113,6 +119,8 @@ VIEWS_SRC = "vsta_tpu_torch/csrc/warp_views_sum.cu"
 # stride-8 map, batch 2 x (40 + 1) raw channels
 GROUPED_G, GROUPED_HW, GROUPED_K = 7, (34, 60), 2 * 41
 BEV_HW = (120, 360)
+# the device kernels behind rows 4 and 5's wrappers, as the profiler names them
+KERNEL_NAMES = {"sample_tiles_grouped": "sample_kernel", "taps_dot_grouped": "taps_dot_kernel"}
 
 
 def log(msg: str) -> None:
@@ -197,6 +205,9 @@ def hold(name: str, got: torch.Tensor, ref: torch.Tensor, rule: str) -> float:
     elif rule == "zero":
         ok = bool((got == 0).all())
         rule_s = "exactly 0"
+    elif rule == "exact":
+        ok = got.dtype == ref.dtype and torch.equal(got, ref)
+        rule_s = "bit-equal"
     else:
         tol = 1e-5 * float(ref.float().abs().max())
         ok = float(diff.max()) <= tol
@@ -640,6 +651,63 @@ def sync_free_backward(inputs):
         f"torch.cuda.set_sync_debug_mode('error'): no host sync")
 
 
+def at_odd_offset(x):
+    """A copy of x as a contiguous view one element into its buffer: its
+    address is aligned to no load wider than one element."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def partition_cases(dev, idx, wts, P):
+    """Rows 4 and 5 at each branch of their work partition: ragged and
+    small K (1, 2, 13, 26, 41, 82) and wide K (32, 128, 1,280), bf16 and
+    f32, maps and gout aligned and at an odd element offset (one channel a
+    load), on the flagship's taps cut to N = 43,197 samples: no multiple
+    of a block's cells, so each group's last block is short and every
+    group's output run after the first starts off 16 bytes (the flat
+    store's head and tail). Row 4 bit-equal to its plain version, row 5
+    within 1e-5 max|ref|; each launched twice, bit-equal; the partition
+    each launch takes, as the library reports it, equal to grouped_cuda's
+    mirror of its rules (which tests/test_torch_grouped_partition.py
+    models)."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+
+    G, N = idx.shape[0], idx.shape[1] - 3
+    i, w = idx[:, :N].contiguous(), wts[:, :N].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    taken = {}
+    for K in (1, 2, 13, 26, 41, 82, 32, 128, 1280):
+        maps32 = torch.randn((G, P, K), generator=gen, device=dev)
+        gout32 = torch.randn((G, N, K), generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            for odd in (False, True):
+                maps, gout = maps32.to(dtype), gout32.to(dtype)
+                if odd:
+                    maps, gout = at_odd_offset(maps), at_odd_offset(gout)
+                name = f"K={K} {str(dtype).split('.')[-1]} {'odd offset' if odd else 'aligned'} G={G} N={N}"
+                out, dw = gc.sample_tiles_grouped(maps, i, w), gc.taps_dot_grouped(maps, gout, i)
+                check(torch.equal(out, gc.sample_tiles_grouped(maps, i, w))
+                      and torch.equal(dw, gc.taps_dot_grouped(maps, gout, i)),
+                      f"partition {name}: two launches of row 4 or row 5 differ")
+                hold(f"sample_tiles_grouped {name}", out, gc.sample_tiles_grouped_ref(maps, i, w), "exact")
+                hold(f"taps_dot_grouped {name}", dw, gc.taps_dot_grouped_ref(maps, gout, i), "f32")
+                size = maps.element_size()
+                for kernel, mirror, other in (
+                        ("sample_tiles_grouped", gc.sample_partition(K, size, maps.data_ptr(), out.data_ptr()), out),
+                        ("taps_dot_grouped", gc.taps_dot_partition(K, size, maps.data_ptr(), gout.data_ptr()), gout)):
+                    lib = gc.library_partition(kernel, K, dtype, maps, other)
+                    check(lib == mirror, f"partition {name}: {kernel} takes {lib}, grouped_cuda's mirror says {mirror}")
+                    check(not odd or lib.vec == 1, f"partition {name}: {kernel} takes {lib.vec} channels a load")
+                    taken.setdefault(name, []).append("{}: V={} L={} S={} cells={}{}".format(
+                        kernel.split("_")[0], *lib[:4], " staged" if lib.staged else ""))
+                del out, dw, maps, gout
+        del maps32, gout32
+    log("[partition] rows 4 and 5, each case twice and bit-equal, the library's partition equal to grouped_cuda's "
+        "mirror: " + "; ".join(f"{name}: {', '.join(parts)}" for name, parts in taken.items()))
+
+
 def grouped_phase(dev):
     """The grouped sampler's four kernels against their plain versions at
     the shapes the training paths give them, and their times: the
@@ -676,13 +744,14 @@ def grouped_phase(dev):
               f"{name}: tap_lut differs from its plain version")
         del lut, lut_ref
         out = gc.sample_tiles_grouped(maps, i, w)
+        check(torch.equal(out, gc.sample_tiles_grouped(maps, i, w)), f"{name}: two launches of row 4 differ")
         if one_sided:
             dm3 = gc.scatter_taps_grouped(gout, i, w, Pm)
             check(torch.equal(dm3, gc.scatter_taps_grouped(gout, i, w, Pm)), f"{name}: two launches of row 3 differ")
             torch.cuda.synchronize()
             ref_out = gc.sample_tiles_grouped_ref(maps, i, w)
             check(out.dtype == maps.dtype and out.shape == ref_out.shape, f"{name}: sample shape/dtype")
-            errs[f"sample {name}"] = hold(f"sample_tiles_grouped {name}", out, ref_out, rule)
+            errs[f"sample {name}"] = hold(f"sample_tiles_grouped {name}", out, ref_out, "exact")
             del out, ref_out
             ref_dm = gc.scatter_taps_grouped_ref(gout, i, w, maps.shape[1])
             check(dm3.shape == ref_dm.shape and dm3.dtype == torch.float32, f"{name}: dmaps shape/dtype")
@@ -699,7 +768,7 @@ def grouped_phase(dev):
         check(dm.shape == dm3.shape == ref_dm.shape and dw.shape == dw5.shape == ref_dw.shape, f"{name}: shapes")
         check(dm3.dtype == dw5.dtype == torch.float32, f"{name}: gradient dtypes")
         dm_rule = "zero" if rule == "zero" else "f32"
-        errs[f"sample {name}"] = hold(f"sample_tiles_grouped {name}", out, ref_out, rule)
+        errs[f"sample {name}"] = hold(f"sample_tiles_grouped {name}", out, ref_out, "exact")
         errs[f"dmaps {name}"] = hold(f"scatter_tapdot_grouped dmaps {name}", dm, ref_dm, dm_rule)
         errs[f"d_wts {name}"] = hold(f"scatter_tapdot_grouped d_wts {name}", dw, ref_dw, "f32")
         errs[f"dmaps3 {name}"] = hold(f"scatter_taps_grouped {name}", dm3, ref_dm, dm_rule)
@@ -707,11 +776,13 @@ def grouped_phase(dev):
         same = torch.equal(dm3, dm)
         dm_b, dw_b = gc.scatter_tapdot_grouped(maps, gout, i, w)
         again = torch.equal(dm_b, dm) and torch.equal(dw_b, dw) and torch.equal(gc.scatter_taps_grouped(gout, i, w, Pm), dm3)
+        again5 = torch.equal(gc.taps_dot_grouped(maps, gout, i), dw5)
         del dm_b, dw_b
         log(f"[kernel] scatter_taps_grouped {name}: dmaps bit-equal to scatter_tapdot_grouped's: {same}; "
-            f"two launches of each bit-equal: {again}")
+            f"two launches of each bit-equal: {again}; of row 5: {again5}")
         check(same, f"{name}: scatter_taps_grouped's dmaps differ from the fused kernel's")
         check(again, f"{name}: two launches of row 3 or row 6 differ")
+        check(again5, f"{name}: two launches of row 5 differ")
 
     cases(f"bf16 K={K}", maps32[..., :K].to(bf), gout32[..., :K].to(bf), idx, wts, "bf16")
     cases(f"f32 K={K}", maps32[..., :K], gout32[..., :K], idx, wts, "f32")
@@ -740,6 +811,7 @@ def grouped_phase(dev):
     hot_gout = torch.randint(-4, 5, (G, N, K), generator=gen, device=dev).float()
     cases(f"hot rows bf16 K={K}", maps32[..., :K].to(bf), hot_gout.to(bf), *hot, "bf16")
     cases(f"hot rows f32 K={K}", maps32[..., :K], hot_gout, *hot, "f32")
+    partition_cases(dev, idx, wts, P)
 
     # the deformable sampler's shapes: B = 2 and 16 at ATTN_STRIDE 4, B = 2 at 1
     deform = {}
@@ -792,14 +864,14 @@ def grouped_phase(dev):
         ref = gc.sample_tiles_grouped_ref(w_maps[g0:g0 + 8], p_idx[g0:g0 + 8], p_wts[g0:g0 + 8])
         diff = (out[g0:g0 + 8].float() - ref.float()).abs()
         per_group = diff.amax(dim=(1, 2))
-        ok = (diff <= bf16_ulp(ref) + 1e-6 * ref.float().abs().max()).all(dim=2).all(dim=1)
+        ok = (out[g0:g0 + 8] == ref).all(dim=2).all(dim=1)
         bad += [g0 + j for j in range(8) if not bool(ok[j])]
         worst = max(worst, float(per_group.max()))
         worst_past = max([worst_past] + [float(per_group[j]) for j in range(8) if g0 + j >= first_past])
         del ref, diff
     log(f"[kernel] sample_tiles_grouped unfused G=112 N={N} K=1280 bf16 ({out.numel()} elements out), all 112 groups "
         f"against the plain version 8 at a time: max_abs_err={worst:.3e}; groups {first_past}..111, which start past "
-        f"2**32 elements: {worst_past:.3e} (<= 1 bf16 ulp of |ref| + 1e-6*max|ref|) {'ok' if not bad else 'FAIL'}")
+        f"2**32 elements: {worst_past:.3e} (bit-equal) {'ok' if not bad else 'FAIL'}")
     check(not bad, f"sample_tiles_grouped at G=112 K=1280 disagrees with the plain version in groups {bad}")
     del out
     wide_ms = cuda_ms(gc.sample_tiles_grouped, w_maps, p_idx, p_wts, warmup=1, iters=3)
@@ -906,6 +978,11 @@ def grouped_phase(dev):
             "library_ms": library_ms, **more,
         }
         split_s = (f" (lut_ms={more['lut_ms']:.4f} + kernel_ms={more['kernel_ms']:.4f})" if "lut_ms" in more else "")
+        if kind in ("sample_tiles_grouped", "taps_dot_grouped"):  # out, like maps, is a fresh aligned tensor
+            more["partition"] = "V={} L={} S={} cells={} staged={}".format(
+                *gc.library_partition(kind, Km, maps.dtype, maps, maps if kind == "sample_tiles_grouped" else gout))
+            more["device_ms"] = kernel_device_ms(fn, args, KERNEL_NAMES[kind])
+            split_s += f" (device_ms={more['device_ms']} [{more['partition']}])"
         log(f"[grouped] {kind} {shape}: ms={ms:.4f}{split_s} plain_ms={plain_ms:.4f} {lib_s} "
             f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}: {nbytes / 1e6:.1f} MB; "
             f"{flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}, {rows_read} map rows touched) "
@@ -1367,6 +1444,30 @@ def fusion_serving_phase(dev, cfg_path=FLAGSHIP):
     return total
 
 
+def dev_us(e):
+    """A profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def kernel_device_ms(fn, args, kernel, calls=5):
+    """Mean device time a call of the kernels whose name holds ``kernel``,
+    over ``calls`` calls of fn under torch.profiler: the kernel alone,
+    without the gaps between launches that an event timing of calls as
+    short as the host's launch takes includes. None if the profiler saw
+    no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    us = [dev_us(e) for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    return sum(us) / 1e3 / calls if us else None
+
+
 def profile_request(fn, args, label=None) -> None:
     """Device busy share and the top kernels of one call (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1383,10 +1484,6 @@ def profile_request(fn, args, label=None) -> None:
     # repeats its kernels'
     stats = [e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     busy_ms = sum(dev_us(e) for e in stats) / 1e3
     if busy_ms == 0:
         log("[profile] the profiler recorded no device time: busy share not measured")
@@ -1819,28 +1916,71 @@ def small_model_phase(dev, family="concat"):
     check(d <= 1e-4, f"small {family} f32 model on the card disagrees with the CPU")
 
 
+def grouped_timing_inputs(dev):
+    """The grouped sampler's timed shapes (PERF.md's table), bf16, label ->
+    (maps, gout, idx, wts): the flagship warp's taps at K = 82 and 128, the
+    deformable sampler's (s4, s4*16, s1), the per-frame warp's (pf2, pf16)
+    and the unfused fusions' G = 14 at K = 1,280; maps and cotangents
+    random."""
+    from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps
+
+    (Hf, Wf), bf = GROUPED_HW, torch.bfloat16
+    P = (Hf + 1) * (Wf + 1)
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(G, N, K):
+        return (torch.randn((G, P, K), generator=gen, device=dev).to(bf),
+                torch.randn((G, N, K), generator=gen, device=dev).to(bf))
+
+    anchors, wts = anchored_taps(flagship_lut(dev), (Hf, Wf))
+    flag = (flat_taps(anchors, Wf + 1), wts.contiguous())
+    N = flag[0].shape[1]
+    shapes = {f"warp K={GROUPED_K}": (*rand(GROUPED_G, N, GROUPED_K), *flag), "warp K=128": (*rand(GROUPED_G, N, 128), *flag)}
+    for label, B, stride in (("s4", 2, 4), ("s4*16", 16, 4), ("s1", 2, 1)):
+        i, w = deform_taps(dev, B, stride)
+        shapes[label] = (*rand(i.shape[0], i.shape[1], 32), i, w)
+    for label, Bp in (("pf2", 2), ("pf16", 16)):
+        a, w = anchored_taps(perframe_coords(dev, Bp).reshape(Bp * 7, N, 2), (Hf, Wf))
+        shapes[label] = (*rand(Bp * 7, N, 128), flat_taps(a, Wf + 1), w.contiguous())
+    shapes["G=14 K=1280"] = (*rand(14, N, 1280), *shapes["pf2"][2:])
+    return shapes
+
+
 def baseline_phase(dev, base_dir):
-    """The dense warp kernels of another checkout (``--baseline DIR``, such
-    as the parent commit unpacked) timed beside this one's, in turns (base,
-    this, this, base), at the main path's shapes, and their outputs
-    compared. The base's sources are built here with this checkout's nvcc
-    flags; a source without the grid-width argument has the C interface
-    from before it."""
+    """The kernels of another checkout (``--baseline DIR``, such as the
+    parent commit unpacked) timed beside this one's, in turns (base, this,
+    this, base), at the main path's shapes, and their outputs compared:
+    the dense warp kernels (warp_tiles, warp_views_sum) and the grouped
+    sampler's sample-major ones (sample_tiles_grouped, taps_dot_grouped).
+    The base's sources are built here with this checkout's nvcc flags, one
+    nvcc a source, all started together; a warp source without the
+    grid-width argument has the C interface from before it."""
     import ctypes
 
     from vsta_tpu_torch import kernels
+    from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp import precompute_warp_lut
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles
     from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum
     from vsta_tpu_torch.utils.timing import cuda_ms
 
-    base = {}
-    for name in ("warp_tiles", "warp_views_sum"):
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = {}
+    for name in ("warp_tiles", "warp_views_sum", "grouped_taps"):
         src = Path(base_dir) / "vsta_tpu_torch" / "csrc" / f"{name}.cu"
         lib = kernels.BUILD_DIR / f"libbaseline-{name}.so"
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)], check=True,
-                       capture_output=True, text=True)
+        proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds[name] = (proc, src, lib)
+    base = {}
+    for name, (proc, src, lib) in builds.items():
+        text = proc.communicate()[0]
+        check(proc.returncode == 0, f"baseline build of {name} failed:\n{text}")
+        if name == "grouped_taps":
+            base[name] = ctypes.CDLL(str(lib))
+            for fname in ("grouped_sample_launch", "grouped_taps_dot_launch"):
+                getattr(base[name], fname).argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            continue
         fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
         grid_arg = "int grid_w" in src.read_text()
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (6 + grid_arg) + [ctypes.c_void_p]
@@ -1867,6 +2007,25 @@ def baseline_phase(dev, base_dir):
         check(rc == 0, f"baseline {name} launch failed ({rc})")
         return out
 
+    def run_grouped(lib, kind, maps, gout, i, w):
+        """Row 4 or row 5 of ``lib`` through its C entry point, as the
+        wrapper calls it: both sides of a turn take the same host path, so
+        that at shapes as short as a launch the kernels, not the wrappers'
+        checks, are compared."""
+        Gm, Pm, Km = maps.shape
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kind == "sample_tiles_grouped":
+            out = torch.empty((Gm, i.shape[1], Km), dtype=maps.dtype, device=dev)
+            rc = lib.grouped_sample_launch(
+                maps.data_ptr(), i.data_ptr(), w.data_ptr(), out.data_ptr(), Gm, Pm, i.shape[1], Km, code[maps.dtype], stream)
+        else:
+            out = torch.empty((Gm, i.shape[1], 4), dtype=torch.float32, device=dev)
+            rc = lib.grouped_taps_dot_launch(
+                maps.data_ptr(), gout.data_ptr(), i.data_ptr(), out.data_ptr(), Gm, Pm, i.shape[1], Km, code[maps.dtype],
+                stream)
+        check(rc == 0, f"{kind} launch failed ({rc})")
+        return out
+
     cases = [("warp_tiles", f"bf16 K={K}", f32[..., :K].to(torch.bfloat16).contiguous(), idx, wts, torch.bfloat16)
              for K in (WARP_K, TRAIN_K, 128)]
     cases.append(("warp_tiles", f"f32 K={WARP_K}", f32, idx, wts, torch.float32))
@@ -1874,18 +2033,51 @@ def baseline_phase(dev, base_dir):
                pwts[:B].contiguous(), torch.float32) for B in (16, 2, 1)]
     cases.append(("warp_views_sum", "f32 B=16", pf32, pidx, pwts, torch.float32))
     table = {}
+
+    def turns(key, this, other, diff, rule, kernel=None):
+        t = [cuda_ms(f, warmup=3, iters=20) for f in (other, this, this, other)]
+        table[key] = {"base_ms": [round(t[0], 4), round(t[3], 4)], "ms": [round(t[1], 4), round(t[2], 4)],
+                      "max_abs_diff": diff}
+        dev_s = ""
+        if kernel:  # the kernels alone, without the gaps between launches
+            d = [kernel_device_ms(f, (), kernel) for f in (other, this)]
+            table[key].update(base_device_ms=d[0], device_ms=d[1])
+            dev_s = f"; device base {d[0]} ms, this {d[1]} ms (profiler, 5 calls each)"
+        log(f"[baseline] {key}: base {t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms "
+            f"(base, this, this, base), outputs differ by {diff:.3e}{rule}{dev_s}")
+
     for name, label, feats, i, w, out_dtype in cases:
         if name == "warp_tiles":
             this = lambda: warp_tiles(feats, i, w, out_dtype=out_dtype, grid_w=Wb)
         else:
             this = lambda: warp_views_sum(feats, i, w, grid_w=Wb)
         other = lambda: run_base(name, feats, i, w, out_dtype)
-        diff = float((this().float() - other().float()).abs().max())
-        t = [cuda_ms(f, warmup=3, iters=20) for f in (other, this, this, other)]
-        table[f"{name} {label}"] = {"base_ms": [round(t[0], 4), round(t[3], 4)], "ms": [round(t[1], 4), round(t[2], 4)],
-                                    "max_abs_diff": diff}
-        log(f"[baseline] {name} {label}: base {t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms "
-            f"(base, this, this, base), outputs differ by {diff:.3e}")
+        turns(f"{name} {label}", this, other, float((this().float() - other().float()).abs().max()), "")
+    del f32, pf32
+    # rows 4 and 5 at every shape of PERF.md's table (bf16), and row 5 in
+    # f32 at s1: row 4's outputs must agree bit for bit, row 5's within
+    # 1e-5 max (both sum in f32, in other orders)
+    grouped = grouped_timing_inputs(dev)
+    runs = [(kind, label, inputs) for label, inputs in grouped.items()
+            for kind in ("sample_tiles_grouped", "taps_dot_grouped")]
+    s1 = grouped["s1"]
+    runs.append(("taps_dot_grouped", "s1 f32", (s1[0].float(), s1[1].float(), *s1[2:])))
+    mine = gc._library()
+    for kind, label, (maps, gout, i, w) in runs:
+        this = lambda: run_grouped(mine, kind, maps, gout, i, w)
+        other = lambda: run_grouped(base["grouped_taps"], kind, maps, gout, i, w)
+        a, b = this(), other()
+        diff = float((a.float() - b.float()).abs().max())
+        if kind == "sample_tiles_grouped":
+            check(torch.equal(a, b), f"baseline {kind} {label}: outputs differ ({diff:.3e})")
+            rule = " (bit-equal)"
+        else:
+            tol = 1e-5 * float(b.abs().max())
+            check(diff <= tol, f"baseline {kind} {label}: outputs differ by {diff:.3e} > {tol:.3e}")
+            rule = f" (<= 1e-5*max = {tol:.3e})"
+        del a, b
+        turns(f"{kind} {label} G={maps.shape[0]} N={i.shape[1]} K={maps.shape[2]}", this, other, diff, rule,
+              KERNEL_NAMES[kind])
     print(json.dumps({"baseline": str(base_dir), "times": table}))
 
 

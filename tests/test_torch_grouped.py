@@ -86,7 +86,7 @@ def _compare(got, want, exact):
 CASES = [
     pytest.param(K, dtype, id=f"{dtype}-K{K}")
     for dtype in ("float32", "bfloat16")
-    for K in (16, 13)  # 13: a ragged K, as the flagship's 82
+    for K in (16, 13, 26)  # 13 and 26: ragged Ks, odd and even (the flagship's 82 = 2 x 41)
 ]
 
 

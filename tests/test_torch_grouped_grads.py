@@ -103,7 +103,16 @@ def test_scatter_taps_grouped_ref_matches_pallas(rng, taps, K, dtype):
     _compare(got, want, exact)
 
 
-@pytest.mark.parametrize("taps,K,dtype", CASES)
+# row 5 also at K = 26, an even ragged K like the flagship's 82, which the
+# CUDA kernel takes two channels a load
+DOT_CASES = CASES + [
+    pytest.param(taps, 26, dtype, id=f"{taps}-{dtype}-K26")
+    for taps in ("lut", "anchored")
+    for dtype in ("float32", "bfloat16")
+]
+
+
+@pytest.mark.parametrize("taps,K,dtype", DOT_CASES)
 def test_taps_dot_grouped_ref_matches_pallas(rng, taps, K, dtype):
     exact = dtype == "bfloat16"
     idx, wts, P = _taps(rng, taps, exact)

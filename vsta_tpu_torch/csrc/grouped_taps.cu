@@ -28,14 +28,32 @@
 // map rows the taps touch read once and d_wts written once besides), over
 // 3.35 TB/s. The sort of the taps below is not in the bound.
 //
-// sample: a block takes `cells` consecutive samples of one group and stages
-// their 4 taps in shared memory; each thread sums the 4 taps of one item
-// (a sample and a run of channels) in f32. K % 8 == 0 with 16-byte aligned
-// pointers takes 8 channels an item in 16-byte loads; any other K (the
-// flagship's 82 = 2 x 41 is one) takes one channel an item, so consecutive
-// threads still read consecutive channels of a row and the loads coalesce.
-// Taps of weight 0 are skipped.
-//
+// sample: sample-major. A sub-warp of L lanes owns a sample, lane l the
+// runs l, l + L, ... of V channels of its row (V the widest load, at most
+// 16 bytes, that divides K and to which maps and out are aligned: 2
+// channels at the flagship's K = 82 in bf16, 8 at K = 32, 128 and 1,280;
+// L a power of two up to 32 that covers the K / V runs with the fewest
+// idle lanes: 16 at K = 82, 4 at K = 32). A block owns `cells` = (256 / L)
+// sub-warps x S (8) consecutive samples of one group. It first loads all
+// its samples' taps, a sample a thread (an int4 of indices, a float4 of
+// weights rounded to bf16 once), so that every tap load of the block is in
+// flight at once, into shared memory; a lane then reads its sample's taps
+// once and holds them in registers for all its runs, its 4 loads issued
+// before the first FMA. Each element's sum is fmaf over t = 0..3 in order,
+// taps of weight 0 (and indices outside [0, P)) skipped, as
+// sample_tiles_grouped_ref adds them: the kernel is bit-equal to it. A lane
+// whose load is 16 bytes stores straight from registers (a warp's stores
+// are then contiguous); a narrower one (K = 82: 4 bytes) writes into a
+// shared tile of the block's output, which is one run of cells x K
+// elements, placed at the run's offset modulo 16 bytes and stored as
+// 16-byte words, its unaligned head and tail element by element (a row too
+// long to stage, past 6 KB, is stored from registers). Bytes do
+// not hold it (the map rows it gathers are L1/L2 hits): loads in flight
+// and the instructions a byte do. On the H100, two samples a lane at a time
+// (more registers a thread, fewer blocks an SM), more runs a lane in
+// flight, and staging stores that are 16 bytes already were each slower
+// at the model's shapes.
+
 // The scatters are a segmented reduction over the taps sorted by the row
 // they read (Merrill and Garland's merge-based sparse product, with a K-wide
 // right-hand side), deterministic and without float atomics.
@@ -83,13 +101,21 @@
 // with the map row idx points at (0 outside [0, P)). Slices of channels
 // add up in shared memory, so each d_wts[f] is stored once.
 //
-// taps_dot: sample-major, no sort. A sub-warp of L lanes (8, 16 or 32, the
-// least that covers K up to 32) owns one sample: the lanes stride over K,
-// each summing its share of the 4 dots <map row of tap t, gout[n]> in f32,
-// a butterfly of shuffles adds the shares, and lane 0 stores the sample's
-// 4 dots as one 16-byte word. Every tap is computed, weight 0 or not (a
-// clamped index is a valid row; the caller's mask multiplies junk away); a
-// tap outside [0, P) gives 0.
+// taps_dot: sample-major, no sort. A sub-warp of L lanes owns a sample,
+// lane l the runs l, l + L, ... of V channels (V the widest load, at most
+// 16 bytes, that divides K and to which maps and gout are aligned; L the
+// power of two, 4 to 32, that covers the K / V runs: 4 lanes at K = 32 in
+// bf16, 8 samples a warp; 16 at K = 128), S (8) samples a sub-warp in a
+// block. The block first loads its samples' indices, an int4 a sample and
+// a thread, into shared memory (every load in flight at once); a lane
+// reads its sample's int4 there, loads its cotangent run and the 4 tap
+// rows' runs before any FMA and sums its share of the 4 dots in f32, in a
+// fixed order; the transposing butterfly of scatter_tapdot (transpose_sum)
+// then leaves dot t in lane t, 3 + log2(L / 4) shuffles for the 4 (3 at
+// L = 4, where a butterfly a dot took 20), and lanes 0..3 store the
+// sample's 16 contiguous bytes. No atomics: two launches are bit-equal.
+// Every tap is computed, weight 0 or not (a clamped index is a valid row;
+// the caller's mask multiplies junk away); a tap outside [0, P) gives 0.
 
 #include <cub/device/device_radix_sort.cuh>
 #include <cuda_bf16.h>
@@ -102,13 +128,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;  // chunks a block
-constexpr int kItemsPerThread = 4;
-constexpr int kMaxStagedCells = 48 * 1024 / (4 * 8);  // 4 taps x (idx + wt)
+// samples a sub-warp of sample_kernel and taps_dot_kernel takes in a block
+// (fewer where sample's shared memory would pass kMaxSmem, the 48 KB a
+// launch gets without opting in)
+constexpr int kSamplesPerLane = 8;
+constexpr long long kMaxSmem = 48 * 1024;
 constexpr int kMaxChunk = 1024;  // scatter_tapdot keeps a chunk's dots in shared memory
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // a tap weight as it multiplies a T value (see "Rounding" above)
 __device__ __forceinline__ float tap_weight(float w, const __nv_bfloat16*) {
@@ -166,17 +192,22 @@ __device__ __forceinline__ void load_run(const T* p, float* v) {
   }
 }
 
-template <int CH>
-__device__ __forceinline__ void store_run(__nv_bfloat16* p, const float* v) {
-  if constexpr (CH == 8) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
+// V f32 values stored as V elements of T (one store of 2 to 16 bytes)
+template <typename T, int V>
+__device__ __forceinline__ void narrow_store(T* p, const float* v) {
+  Raw<T, V> r;
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (V == 4) r = make_float4(v[0], v[1], v[2], v[3]);
+    else if constexpr (V == 2) r = make_float2(v[0], v[1]);
+    else r = v[0];
+  } else if constexpr (V == 1) {
+    r = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
   } else {
-    p[0] = __float2bfloat16_rn(v[0]);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   }
+  *reinterpret_cast<Raw<T, V>*>(p) = r;
 }
 
 template <int CH>
@@ -193,58 +224,110 @@ __device__ __forceinline__ void store_run(float* p, const float* v) {
   }
 }
 
-// grid (ceil(N / cells), G); CH = channels an item (8 or 1)
-template <typename T, int CH>
+// a sample's 4 taps as the sampler multiplies them: weights rounded to T's
+// precision, an index outside [0, P) (or a sample past the end) weight 0
+template <typename T>
+__device__ __forceinline__ void sample_taps(const int* __restrict__ idx, const float* __restrict__ wts, long long s,
+                                            bool live, bool taps16, int P, int (&id)[4], float (&w)[4]) {
+  int4 i4 = make_int4(0, 0, 0, 0);
+  float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live && taps16) {
+    i4 = __ldg(reinterpret_cast<const int4*>(idx) + s);
+    w4 = __ldg(reinterpret_cast<const float4*>(wts) + s);
+  } else if (live) {
+    i4 = make_int4(idx[4 * s], idx[4 * s + 1], idx[4 * s + 2], idx[4 * s + 3]);
+    w4 = make_float4(wts[4 * s], wts[4 * s + 1], wts[4 * s + 2], wts[4 * s + 3]);
+  }
+  const int ids[4] = {i4.x, i4.y, i4.z, i4.w};
+  const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const bool in = ids[t] >= 0 && ids[t] < P;  // never made by the taps; skipped, not read out of bounds
+    id[t] = in ? ids[t] : 0;
+    w[t] = in ? tap_weight(ws[t], static_cast<const T*>(nullptr)) : 0.f;
+  }
+}
+
+// n elements from src (shared memory) to dst, which agree modulo 16 bytes:
+// 16-byte words, the head before dst's first 16-byte boundary and the tail
+// after its last element by element
+template <typename T>
+__device__ __forceinline__ void flat_store(T* __restrict__ dst, const T* __restrict__ src, int n) {
+  constexpr int E = 16 / sizeof(T);
+  const int to16 = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15);  // bytes
+  const int head = min(n, to16 / static_cast<int>(sizeof(T)));
+  const int words = (n - head) / E;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int i = threadIdx.x; i < words; i += blockDim.x) d4[i] = s4[i];
+  const int rest = n - words * E;  // head and tail
+  for (int i = threadIdx.x; i < rest; i += blockDim.x) {
+    const int e = i < head ? i : head + words * E + (i - head);
+    dst[e] = src[e];
+  }
+}
+
+// grid (ceil(N / cells), G), cells = (kThreads / L) * S; sub-warp q of the
+// block owns samples q, q + kThreads / L, ... (S of them). Dynamic shared
+// memory: the block's taps (cells int4 + cells float4), then, if staged,
+// its output tile (cells * K elements + 16 bytes)
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-sample_kernel(const T* __restrict__ maps, const int* __restrict__ idx,
-              const float* __restrict__ wts, T* __restrict__ out,
-              int P, int N, int K, int cells) {
-  extern __shared__ int s_taps[];
-  int* s_idx = s_taps;
-  float* s_wts = reinterpret_cast<float*>(s_taps + cells * 4);
+sample_kernel(const T* __restrict__ maps, const int* __restrict__ idx, const float* __restrict__ wts,
+              T* __restrict__ out, int P, int N, int K, int L, int S, bool staged, bool taps16) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  const int groups = kThreads / L, cells = groups * S;
+  int4* s_id = reinterpret_cast<int4*>(s_raw);
+  float4* s_w = reinterpret_cast<float4*>(s_raw + cells * sizeof(int4));
+  const int lane = threadIdx.x & (L - 1), q = threadIdx.x / L;
   const long long g = blockIdx.y;
   const long long n0 = static_cast<long long>(blockIdx.x) * cells;
-
-  for (int i = threadIdx.x; i < cells * 4; i += blockDim.x) {
-    const long long n = n0 + (i >> 2);
-    float w = 0.f;
-    int id = 0;
-    if (n < N) {
-      const long long off = (g * N + n) * 4 + (i & 3);
-      w = wts[off];
-      id = idx[off];
-    }
-    // an index outside [0, P) is never made by the taps; skip it rather
-    // than read out of bounds
-    if (id < 0 || id >= P) {
-      w = 0.f;
-      id = 0;
-    }
-    s_idx[i] = id;
-    s_wts[i] = tap_weight(w, maps);
+  const int nc = static_cast<int>(min(static_cast<long long>(cells), N - n0));
+  const T* gmap = maps + g * P * static_cast<long long>(K);
+  T* run = out + (g * N + n0) * K;  // the block's output, nc * K elements
+  // the tile sits at the run's offset modulo 16 bytes, so that a 16-byte
+  // word of the run is one of the tile
+  T* tile = reinterpret_cast<T*>(s_raw + cells * (sizeof(int4) + sizeof(float4))) +
+            (reinterpret_cast<uintptr_t>(run) & 15) / sizeof(T);
+  // the block's taps, a sample a thread: every load in flight at once
+  for (int i = threadIdx.x; i < cells; i += kThreads) {
+    int id[4];
+    float w[4];
+    sample_taps<T>(idx, wts, g * N + n0 + i, i < nc, taps16, P, id, w);
+    s_id[i] = make_int4(id[0], id[1], id[2], id[3]);
+    s_w[i] = make_float4(w[0], w[1], w[2], w[3]);
   }
   __syncthreads();
-
-  const T* gmap = maps + g * P * static_cast<long long>(K);
-  const int nrun = (K + CH - 1) / CH;
-  for (int it = threadIdx.x; it < cells * nrun; it += blockDim.x) {
-    const int c = it / nrun;
-    const long long n = n0 + c;
-    if (n >= N) break;  // samples past the end: later items too
-    const int k0 = (it - c * nrun) * CH;
-    float acc[CH];
+  const int R = K / V;
+  for (int j = 0; j < S; ++j) {
+    const int c = q + j * groups;
+    if (c >= nc) break;  // and the sub-warp's later samples
+    const int4 i4 = s_id[c];
+    const float4 w4 = s_w[c];
+    const int id[4] = {i4.x, i4.y, i4.z, i4.w};
+    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+    for (int r = lane; r < R; r += L) {
+      Raw<T, V> raw[4];
 #pragma unroll
-    for (int e = 0; e < CH; ++e) acc[e] = 0.f;
+      for (int t = 0; t < 4; ++t)
+        if (w[t] != 0.f) raw[t] = load_raw<T, V>(gmap + static_cast<long long>(id[t]) * K + r * V);
+      float acc[V];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float wt = s_wts[c * 4 + t];
-      if (wt == 0.f) continue;
-      float x[CH];
-      load_run<CH>(gmap + static_cast<long long>(s_idx[c * 4 + t]) * K + k0, x);
+      for (int e = 0; e < V; ++e) acc[e] = 0.f;
 #pragma unroll
-      for (int e = 0; e < CH; ++e) acc[e] = fmaf(wt, x[e], acc[e]);
+      for (int t = 0; t < 4; ++t) {
+        if (w[t] == 0.f) continue;
+        float x[V];
+        widen<T, V>(raw[t], x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = fmaf(w[t], x[e], acc[e]);
+      }
+      narrow_store<T, V>((staged ? tile : run) + static_cast<long long>(c) * K + r * V, acc);
     }
-    store_run<CH>(out + (g * N + n) * K + k0, acc);
+  }
+  if (staged) {
+    __syncthreads();
+    flat_store<T>(run, tile, nc * K);
   }
 }
 
@@ -428,11 +511,12 @@ scatter_carry_kernel(const int* __restrict__ rows, const float* __restrict__ car
   }
 }
 
-// v[0..U) a lane; after it, every lane l holds the sum over the warp of
-// v[l % U] (U a power of two up to 32): a transposing butterfly, U - 1 +
-// log2(32 / U) shuffles for U sums where one sum alone takes 5
+// v[0..U) a lane; after it, every lane l holds the sum over its aligned
+// group of `width` lanes (a power of two, U to 32) of v[l % U]: a
+// transposing butterfly, U - 1 + log2(width / U) shuffles for U sums where
+// one sum alone takes log2(width)
 template <int U>
-__device__ __forceinline__ float transpose_sum(float (&v)[U], int lane) {
+__device__ __forceinline__ float transpose_sum(float (&v)[U], int lane, int width = 32) {
 #pragma unroll
   for (int h = U / 2; h >= 1; h >>= 1) {
     const bool up = lane & h;
@@ -443,8 +527,7 @@ __device__ __forceinline__ float transpose_sum(float (&v)[U], int lane) {
       v[i] = keep + __shfl_xor_sync(kFull, send, h);
     }
   }
-#pragma unroll
-  for (int o = U; o < 32; o <<= 1) v[0] += __shfl_xor_sync(kFull, v[0], o);
+  for (int o = U; o < width; o <<= 1) v[0] += __shfl_xor_sync(kFull, v[0], o);
   return v[0];
 }
 
@@ -596,73 +679,158 @@ scatter_tapdot_kernel(const T* __restrict__ maps, const T* __restrict__ gout,
   for (int j = ch.j0 + lane; j < ch.j1; j += 32) dwts[order[j]] = dots[j - ch.j0];
 }
 
-// one sub-warp of L lanes a sample s in [0, G*N); kThreads / L samples a block
-template <typename T, int L>
-__global__ void __launch_bounds__(kThreads)
-taps_dot_kernel(const T* __restrict__ maps, const T* __restrict__ gout,
-                const int* __restrict__ idx, float* __restrict__ dwts,
-                long long samples, int P, int N, int K) {
-  const int lane = threadIdx.x % L;
-  const long long s = static_cast<long long>(blockIdx.x) * (kThreads / L) + threadIdx.x / L;
-  const bool live = s < samples;  // every lane stays for the shuffles
-  float dot[4] = {0.f, 0.f, 0.f, 0.f};
-  if (live) {
-    const T* gmap = maps + (s / N) * P * static_cast<long long>(K);
-    const T* grow = gout + s * K;
-    const int4 tap = __ldg(reinterpret_cast<const int4*>(idx) + s);
-    const int id[4] = {tap.x, tap.y, tap.z, tap.w};
-    for (int k = lane; k < K; k += L) {
-      const float gv = to_f(grow[k]);
+// one sub-warp of L lanes (4 to 32) a sample; sub-warp q of block b owns
+// samples b * cells + q, + kThreads / L, ... (S of them). Dynamic shared
+// memory: the block's indices, cells int4
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 4)
+taps_dot_kernel(const T* __restrict__ maps, const T* __restrict__ gout, const int* __restrict__ idx,
+                float* __restrict__ dwts, long long samples, int P, int N, int K, int L, int S) {
+  extern __shared__ __align__(16) int4 s_idx[];
+  const int groups = kThreads / L, cells = groups * S;
+  const int lane = threadIdx.x & (L - 1), q = threadIdx.x / L;
+  const long long s0 = static_cast<long long>(blockIdx.x) * cells;
+  // the block's indices, a sample a thread: every load in flight at once
+  for (int i = threadIdx.x; i < cells; i += kThreads)
+    s_idx[i] = s0 + i < samples ? __ldg(reinterpret_cast<const int4*>(idx) + s0 + i) : make_int4(-1, -1, -1, -1);
+  __syncthreads();
+  long long g = (s0 + q) / N;  // the group of the sub-warp's sample, found once and stepped
+  for (int j = 0; j < S; ++j) {  // every lane stays for the shuffles
+    const long long s = s0 + q + static_cast<long long>(j) * groups;
+    const bool live = s < samples;
+    while ((g + 1) * N <= s) ++g;
+    const int4 i4 = s_idx[q + j * groups];
+    const int id[4] = {i4.x, i4.y, i4.z, i4.w};
+    bool in[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) in[t] = id[t] >= 0 && id[t] < P;
+    const T* gmap = maps + g * P * static_cast<long long>(K);
+    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = lane; live && r < K / V; r += L) {
+      const Raw<T, V> graw = load_raw<T, V>(gout + s * K + r * V);
+      Raw<T, V> mraw[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (in[t]) mraw[t] = load_raw<T, V>(gmap + static_cast<long long>(id[t]) * K + r * V);
+      float gv[V];
+      widen<T, V>(graw, gv);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        if (id[t] >= 0 && id[t] < P)
-          dot[t] = fmaf(to_f(gmap[static_cast<long long>(id[t]) * K + k]), gv, dot[t]);
+        if (!in[t]) continue;
+        float x[V];
+        widen<T, V>(mraw[t], x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) dot[t] = fmaf(x[e], gv[e], dot[t]);
       }
     }
+    const float d = transpose_sum<4>(dot, lane, L);  // lane l: dot l % 4
+    if (live && lane < 4) dwts[4 * s + lane] = d;
   }
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-#pragma unroll
-    for (int o = L / 2; o > 0; o >>= 1) dot[t] += __shfl_xor_sync(kFull, dot[t], o);
+}
+
+struct Partition {
+  int V;        // channels a load
+  int L;        // lanes a sample
+  int S;        // samples a sub-warp takes in a block
+  int cells;    // samples a block: (kThreads / L) * S
+  int staged;   // sample: the block's output staged in shared memory
+};
+
+// the widest vector of T (at most 16 bytes) that divides K, leaves at least
+// `least` of them a row and that every pointer is aligned to
+template <typename T>
+int vector_width(int K, const void* const* ptrs, int nptr, int least) {
+  int v = 16 / static_cast<int>(sizeof(T));
+  for (; v > 1; v >>= 1) {
+    bool ok = K % v == 0 && K / v >= least;
+    for (int i = 0; i < nptr; ++i) ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % (v * sizeof(T)) == 0;
+    if (ok) break;
   }
-  if (live && lane == 0)
-    reinterpret_cast<float4*>(dwts)[s] = make_float4(dot[0], dot[1], dot[2], dot[3]);
+  return v;
+}
+
+// lanes a sample for R runs a row: the least power of two from `least` up
+// to 32 that covers them, halved while that leaves fewer lanes idle with at
+// most 4 runs a lane (never below 8): 41 runs take 16 lanes, 3 passes,
+// where 32 would take 2 with 23 of 64 slots idle
+int sub_warp_lanes(int R, int least) {
+  int L = least;
+  while (L < R && L < 32) L <<= 1;
+  while (L > 8 && (R + L / 2 - 1) / (L / 2) <= 4 &&
+         (R + L / 2 - 1) / (L / 2) * (L / 2) < (R + L - 1) / L * L)
+    L >>= 1;
+  return L;
+}
+
+// bytes of dynamic shared memory sample_kernel takes
+template <typename T>
+long long sample_smem(const Partition& p, int K) {
+  return static_cast<long long>(p.cells) * (sizeof(int4) + sizeof(float4)) +
+         (p.staged ? static_cast<long long>(p.cells) * K * sizeof(T) + 16 : 0);
+}
+
+template <typename T>
+Partition sample_partition(int K, const void* maps, const void* out) {
+  const void* ptrs[] = {maps, out};
+  Partition p;
+  p.V = vector_width<T>(K, ptrs, 2, 1);
+  p.L = sub_warp_lanes(K / p.V, 1);
+  const int groups = kThreads / p.L;
+  // a lane's stores are 16 bytes wide already, or go through the tile
+  p.staged = p.V * static_cast<int>(sizeof(T)) < 16;
+  p.S = 1;
+  p.cells = groups;
+  if (sample_smem<T>(p, K) > kMaxSmem) p.staged = 0;  // a row too long to stage
+  p.S = kSamplesPerLane;
+  p.cells = groups * p.S;
+  while (p.S > 1 && sample_smem<T>(p, K) > kMaxSmem) {
+    p.S /= 2;
+    p.cells = groups * p.S;
+  }
+  return p;
+}
+
+template <typename T>
+Partition taps_dot_partition(int K, const void* maps, const void* gout) {
+  const void* ptrs[] = {maps, gout};
+  Partition p;
+  p.V = vector_width<T>(K, ptrs, 2, 1);
+  p.L = sub_warp_lanes(K / p.V, 4);
+  p.S = kSamplesPerLane;
+  p.cells = kThreads / p.L * p.S;
+  p.staged = 0;
+  return p;
+}
+
+template <typename T, int V>
+void launch_sample_v(const Partition& p, const T* maps, const int* idx, const float* wts, T* out,
+                     int G, int P, int N, int K, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((static_cast<long long>(N) + p.cells - 1) / p.cells), static_cast<unsigned>(G));
+  const size_t smem = static_cast<size_t>(sample_smem<T>(p, K));
+  const bool taps16 = reinterpret_cast<uintptr_t>(idx) % 16 == 0 && reinterpret_cast<uintptr_t>(wts) % 16 == 0;
+  sample_kernel<T, V><<<grid, kThreads, smem, stream>>>(maps, idx, wts, out, P, N, K, p.L, p.S, p.staged != 0,
+                                                        taps16);
 }
 
 template <typename T>
 int launch_sample(const void* maps, const int* idx, const float* wts, void* out,
                   int G, int P, int N, int K, cudaStream_t stream) {
-  const bool vec = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(maps) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const int ch = vec ? 8 : 1;
-  const int nrun = (K + ch - 1) / ch;
-  int cells = (kItemsPerThread * kThreads + nrun - 1) / nrun;
-  cells = cells < 1 ? 1 : (cells > kMaxStagedCells ? kMaxStagedCells : cells);
-  const size_t smem = static_cast<size_t>(cells) * 4 * (sizeof(int) + sizeof(float));
-  const dim3 grid(static_cast<unsigned>((static_cast<long long>(N) + cells - 1) / cells),
-                  static_cast<unsigned>(G));
+  const Partition p = sample_partition<T>(K, maps, out);
   const T* m = static_cast<const T*>(maps);
   T* o = static_cast<T*>(out);
-  if (vec)
-    sample_kernel<T, 8><<<grid, kThreads, smem, stream>>>(m, idx, wts, o, P, N, K, cells);
-  else
-    sample_kernel<T, 1><<<grid, kThreads, smem, stream>>>(m, idx, wts, o, P, N, K, cells);
+  if (p.V == 4) launch_sample_v<T, 4>(p, m, idx, wts, o, G, P, N, K, stream);
+  else if (p.V == 2) launch_sample_v<T, 2>(p, m, idx, wts, o, G, P, N, K, stream);
+  else if (p.V == 1) launch_sample_v<T, 1>(p, m, idx, wts, o, G, P, N, K, stream);
+  else if constexpr (sizeof(T) == 2) launch_sample_v<T, 8>(p, m, idx, wts, o, G, P, N, K, stream);  // bf16 only
   return static_cast<int>(cudaGetLastError());
 }
 
-// the widest vector (at most 16 bytes) that divides K, leaves at least 32
-// of them a row (a warp's lanes all hold channels) and that every pointer
-// is aligned to; then the runs a lane holds, 1 or 2
+// the scatters' runs: the widest vector that leaves at least 32 of them a
+// row (a warp's lanes all hold channels), then the runs a lane holds, 1 or 2
 template <typename T>
 void vector_shape(int K, const void* const* ptrs, int nptr, int* V, int* R) {
-  int v = 16 / static_cast<int>(sizeof(T));
-  for (; v > 1; v >>= 1) {
-    bool ok = K % v == 0 && K / v >= 32;
-    for (int i = 0; i < nptr; ++i) ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % (v * sizeof(T)) == 0;
-    if (ok) break;
-  }
-  *V = v;
-  *R = K / v > 32 ? 2 : 1;
+  *V = vector_width<T>(K, ptrs, nptr, 32);
+  *R = K / *V > 32 ? 2 : 1;
 }
 
 struct ScatterArgs {
@@ -722,25 +890,27 @@ int launch_scatter(const ScatterArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int L>
-int launch_taps_dot_l(const T* maps, const T* gout, const int* idx, float* dwts,
-                      long long samples, int P, int N, int K, cudaStream_t stream) {
-  const int per_block = kThreads / L;
-  const long long blocks = (samples + per_block - 1) / per_block;
-  if (blocks >= (1LL << 31)) return -1;
-  taps_dot_kernel<T, L><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      maps, gout, idx, dwts, samples, P, N, K);
-  return static_cast<int>(cudaGetLastError());
+template <typename T, int V>
+void launch_taps_dot_v(const T* maps, const T* gout, const int* idx, float* dwts, long long samples, int P,
+                       int N, int K, const Partition& p, unsigned blocks, cudaStream_t stream) {
+  taps_dot_kernel<T, V><<<blocks, kThreads, p.cells * sizeof(int4), stream>>>(maps, gout, idx, dwts, samples, P, N,
+                                                                              K, p.L, p.S);
 }
 
 template <typename T>
 int launch_taps_dot(const void* maps, const void* gout, const int* idx, float* dwts,
                     long long samples, int P, int N, int K, cudaStream_t stream) {
+  const Partition p = taps_dot_partition<T>(K, maps, gout);
+  const long long blocks = (samples + p.cells - 1) / p.cells;
+  if (blocks >= (1LL << 31)) return -1;
   const T* m = static_cast<const T*>(maps);
   const T* g = static_cast<const T*>(gout);
-  if (K <= 8) return launch_taps_dot_l<T, 8>(m, g, idx, dwts, samples, P, N, K, stream);
-  if (K <= 16) return launch_taps_dot_l<T, 16>(m, g, idx, dwts, samples, P, N, K, stream);
-  return launch_taps_dot_l<T, 32>(m, g, idx, dwts, samples, P, N, K, stream);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  if (p.V == 4) launch_taps_dot_v<T, 4>(m, g, idx, dwts, samples, P, N, K, p, nb, stream);
+  else if (p.V == 2) launch_taps_dot_v<T, 2>(m, g, idx, dwts, samples, P, N, K, p, nb, stream);
+  else if (p.V == 1) launch_taps_dot_v<T, 1>(m, g, idx, dwts, samples, P, N, K, p, nb, stream);
+  else if constexpr (sizeof(T) == 2) launch_taps_dot_v<T, 8>(m, g, idx, dwts, samples, P, N, K, p, nb, stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the taps of G groups of N samples: n = G*N*4 < 2**31, keys in [0, G*P]
@@ -861,6 +1031,22 @@ int grouped_taps_dot_launch(const void* maps, const void* gout, const void* idx,
   if (dtype == 1) return launch_taps_dot<__nv_bfloat16>(maps, gout, i, dw, samples, P, N, K, s);
   if (dtype == 0) return launch_taps_dot<float>(maps, gout, i, dw, samples, P, N, K, s);
   return -1;
+}
+
+// the work partition sample_tiles_grouped (kernel 0: a = maps, b = out)
+// or taps_dot_grouped (kernel 1: a = maps, b = gout) takes for these K,
+// dtype and pointers: shape[0..4] = V, L, S, cells, staged
+int grouped_partition(int kernel, int K, int dtype, const void* a, const void* b, int* shape) {
+  if (K < 1 || (dtype != 0 && dtype != 1) || (kernel != 0 && kernel != 1)) return -1;
+  Partition p;
+  if (kernel == 0) p = dtype == 1 ? sample_partition<__nv_bfloat16>(K, a, b) : sample_partition<float>(K, a, b);
+  else p = dtype == 1 ? taps_dot_partition<__nv_bfloat16>(K, a, b) : taps_dot_partition<float>(K, a, b);
+  shape[0] = p.V;
+  shape[1] = p.L;
+  shape[2] = p.S;
+  shape[3] = p.cells;
+  shape[4] = p.staged;
+  return 0;
 }
 
 const char* grouped_taps_error_string(int code) {

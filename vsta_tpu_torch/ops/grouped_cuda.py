@@ -99,6 +99,7 @@ def _library() -> ctypes.CDLL:
         ("grouped_scatter_tapdot_launch", [ptr] * 9 + [i32] * 6 + [ptr]),
         ("grouped_scatter_taps_launch", [ptr] * 6 + [i32] * 6 + [ptr]),
         ("grouped_taps_dot_launch", [ptr] * 4 + [i32] * 5 + [ptr]),
+        ("grouped_partition", [i32] * 3 + [ptr] * 3),
     ):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i32
@@ -355,6 +356,86 @@ def taps_dot_grouped(maps: torch.Tensor, gout: torch.Tensor, idx: torch.Tensor) 
 
 
 taps_dot_grouped.launches = 0
+
+# The work partition of the two sample-major kernels, sample_tiles_grouped
+# and taps_dot_grouped (csrc/grouped_taps.cu, whose comments give the
+# reasons): the C rules mirrored here for the CPU model of them in
+# tests/test_torch_grouped_partition.py. chip_smoke.py holds this mirror to
+# the library's own (grouped_partition) at every case it runs.
+THREADS = 256  # a block
+SAMPLES_PER_LANE = 8  # samples a sub-warp takes in a block (fewer where shared memory would pass MAX_SMEM)
+MAX_SMEM = 48 * 1024  # bytes of dynamic shared memory a launch gets without opting in
+
+
+class Partition(NamedTuple):
+    """How one launch cuts its work."""
+
+    vec: int  # channels a load (V): 16 bytes at most
+    lanes: int  # lanes a sample (L)
+    samples: int  # samples a sub-warp takes in a block (S)
+    cells: int  # samples a block: (THREADS // lanes) * samples
+    staged: bool  # sample_tiles_grouped: the block's output goes through shared memory
+
+
+def vector_width(K: int, itemsize: int, addrs) -> int:
+    """The widest load of at most 16 bytes, in elements, that divides K and
+    to which every address is aligned."""
+    v = 16 // itemsize
+    while v > 1 and not (K % v == 0 and all(a % (v * itemsize) == 0 for a in addrs)):
+        v //= 2
+    return v
+
+
+def sub_warp_lanes(runs: int, least: int) -> int:
+    """Lanes a sample: the least power of two from ``least`` up to 32 that
+    covers the row's runs, halved while that leaves fewer lanes idle with
+    at most 4 runs a lane (never below 8)."""
+    L = least
+    while L < runs and L < 32:
+        L *= 2
+    while L > 8 and -(-runs // (L // 2)) <= 4 and -(-runs // (L // 2)) * (L // 2) < -(-runs // L) * L:
+        L //= 2
+    return L
+
+
+def sample_smem(cells: int, K: int, itemsize: int, staged: bool) -> int:
+    """Bytes of shared memory a block of sample_tiles_grouped takes: its
+    taps (an int4 and a float4 a sample) and, if staged, its output tile."""
+    return cells * 32 + (cells * K * itemsize + 16 if staged else 0)
+
+
+def sample_partition(K: int, itemsize: int, maps_addr: int, out_addr: int) -> Partition:
+    """sample_tiles_grouped's partition for K channels of ``itemsize``
+    bytes, maps and out at these addresses: the output staged where a
+    load is narrower than 16 bytes and a block of one sample a sub-warp
+    fits in shared memory."""
+    V = vector_width(K, itemsize, (maps_addr, out_addr))
+    L = sub_warp_lanes(K // V, 1)
+    groups = THREADS // L
+    staged = V * itemsize < 16 and sample_smem(groups, K, itemsize, True) <= MAX_SMEM
+    S = SAMPLES_PER_LANE
+    while S > 1 and sample_smem(groups * S, K, itemsize, staged) > MAX_SMEM:
+        S //= 2
+    return Partition(V, L, S, groups * S, staged)
+
+
+def taps_dot_partition(K: int, itemsize: int, maps_addr: int, gout_addr: int) -> Partition:
+    """taps_dot_grouped's partition: a sub-warp of 4 to 32 lanes a sample."""
+    V = vector_width(K, itemsize, (maps_addr, gout_addr))
+    L = sub_warp_lanes(K // V, 4)
+    return Partition(V, L, SAMPLES_PER_LANE, THREADS // L * SAMPLES_PER_LANE, False)
+
+
+def library_partition(kernel: str, K: int, dtype: torch.dtype, a: torch.Tensor, b: torch.Tensor) -> Partition:
+    """The partition the built library takes for ``kernel``
+    ("sample_tiles_grouped": a = maps, b = out; "taps_dot_grouped": a =
+    maps, b = gout), as it reports it (builds the library)."""
+    lib = _library()
+    shape = (ctypes.c_int * 5)()
+    code = {"sample_tiles_grouped": 0, "taps_dot_grouped": 1}[kernel]
+    _raise_on(lib, lib.grouped_partition(code, K, _DTYPE_CODE[dtype], a.data_ptr(), b.data_ptr(), shape), kernel)
+    return Partition(shape[0], shape[1], shape[2], shape[3], bool(shape[4]))
+
 
 # the reference's rule for its fused backward kernel
 # (scatter_tapdot_grouped, warp_pallas.py): one group's blocks, double
