@@ -70,17 +70,32 @@ Phases, each of which raises on failure (exit code != 0):
    with per-frame cameras (warp_views_sum once forward, the grouped
    sampler at G = 14 backward) and FUSION attn; a small f32 train step of
    each family on the card against the CPU;
-7. the dense per-frame warp warp_views_sum vs its plain version at B = 16,
+7. the training loop end to end (after phase 6's flagship calls): a
+   synthetic Wildtrack tree written by the port's generator in a
+   temporary directory (7 views at 1080x1920, 10 frames, 12 people),
+   configs/wildtrack.yaml with DATA_ROOT there, EPOCHS 2 and EVAL.INTERVAL 1
+   through run_training on the card (two epochs, an eval of 2 frames each,
+   finite losses, last and best checkpoints, launches of warp_tiles,
+   sample_tiles_grouped and scatter_taps_grouped counted inside the loop;
+   epoch times, a step's time and the wait on the Prefetcher's queue);
+   ``python -m vsta_tpu_torch.train --resume`` (EPOCHS 3: resumes from
+   epoch 2) and ``python -m vsta_tpu_torch.evaluate --split all`` (10
+   frames) as subprocesses; the host probe (Pillow, matplotlib, psutil,
+   g++ with libjpeg/libpng/zlib) and the decoder the reader used; a
+   batch-16 frame set copied pageable and through the Prefetcher's pinned
+   non_blocking copy; save, restore and one call bit-equal to uninterrupted
+   calls;
+8. the dense per-frame warp warp_views_sum vs its plain version at B = 16,
    2 and 1, V = 7, P = 2,040, N = 43,200, C = 128 (bf16 and f32 maps,
    ragged C, an all-blind frame on poisoned maps, non-finite coordinates,
    random taps), every case twice and bit-equal, with the same readings;
    the grouped sampler's kernels at the per-frame
    backward's shapes (G = 14 and 112, K = 128) inside phase 4;
-8. the ablation variants of the warp kernel (warp_tiles_variant: full,
+9. the ablation variants of the warp kernel (warp_tiles_variant: full,
    const_weights, row0, no_gather) at K = 2,048, bf16 and f32, each against
    its plain version, 'full' bit-equal to warp_tiles, and one line of the
    four times;
-9. determinism: the deform family's residual upsample backward twice,
+10. determinism: the deform family's residual upsample backward twice,
    bit-equal, and the ops that torch.use_deterministic_algorithms(True,
    warn_only=True) names in one train step of each config.
 
@@ -94,6 +109,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1701,6 +1717,216 @@ def flagship_training_phase(dev, cfg_path=FLAGSHIP):
     )
 
 
+def probe_host() -> dict:
+    """What the host offers the data path: Pillow, matplotlib and psutil
+    (each imported alone), whether g++ links against libjpeg, libpng and
+    zlib, and whether the port's C++ codec is built and loaded."""
+    import tempfile
+
+    from vsta_tpu_torch import native
+
+    out = {}
+    for mod in ("PIL", "matplotlib", "psutil"):
+        r = subprocess.run([sys.executable, "-c", f"import {mod}; print({mod}.__version__)"],
+                           capture_output=True, text=True)
+        out[mod] = r.stdout.strip() if r.returncode == 0 else "missing"
+    with tempfile.TemporaryDirectory() as d:
+        src = Path(d) / "p.c"
+        src.write_text("int main(void) { return 0; }\n")
+        try:
+            r = subprocess.run(["g++", str(src), "-o", str(Path(d) / "p"), "-ljpeg", "-lpng", "-lz"],
+                               capture_output=True, text=True)
+            out["g++ -ljpeg -lpng -lz"] = "links" if r.returncode == 0 else r.stderr.strip().splitlines()[0]
+        except OSError as e:
+            out["g++ -ljpeg -lpng -lz"] = f"no g++ ({e})"
+    out["native codec"] = "built" if native.available() else "unavailable (PIL decodes)"
+    return out
+
+
+def copy_timing(dev, B=16, reps=5):
+    """A batch-16 flagship frame set, uint8 [16, 7, 270, 480, 3], to the
+    card: pageable (``torch.as_tensor(..., device=)``, as serving.py does),
+    through the Prefetcher's put (pinned staging, then the non_blocking
+    copy on its side stream; one stream and two), and the copy alone from
+    memory already pinned (CUDA events). Host clock around each, the
+    consumer's stream synchronised; medians of ``reps`` after two warm-ups."""
+    from vsta_tpu_torch.data.pipeline import DevicePut
+
+    frames = np.random.default_rng(0).integers(0, 256, (B, 7, 270, 480, 3), dtype=np.uint8)
+    nbytes = frames.nbytes
+    consumer = torch.cuda.current_stream(dev)
+
+    def host_ms(fn):
+        ts = []
+        for i in range(2 + reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if i >= 2:
+                ts.append((time.perf_counter() - t) * 1e3)
+            check(out.shape == frames.shape and out.device.type == "cuda", "copy landed")
+        return float(np.median(ts)), ts
+
+    def through(put):
+        def fn():
+            out, event = put({"images": frames}, consumer)
+            consumer.wait_event(event)
+            return out["images"]
+        return fn
+
+    res = {"pageable": host_ms(lambda: torch.as_tensor(frames, device=dev)),
+           "prefetcher put, 1 stream": host_ms(through(DevicePut(dev))),
+           "prefetcher put, 2 streams": host_ms(through(DevicePut(dev, h2d_streams=2)))}
+    pinned = torch.from_numpy(frames).pin_memory()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ts = []
+    for i in range(2 + reps):
+        ev[0].record()
+        out = pinned.to(dev, non_blocking=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            ts.append(ev[0].elapsed_time(ev[1]))
+    res["pinned copy alone (events)"] = (float(np.median(ts)), ts)
+    check(torch.equal(out.cpu(), torch.from_numpy(frames)), "the pinned copy changed the frames")
+    for label, (ms, all_ms) in res.items():
+        log(f"[loop] copy {B}x7x270x480x3 uint8 ({nbytes / 1e6:.1f} MB) {label}: {ms:.3f} ms = "
+            f"{nbytes / ms / 1e6:.2f} GB/s (all {[round(x, 3) for x in all_ms]})")
+    return {k: v[0] for k, v in res.items()}
+
+
+def resume_check(dev, cfg, save_dir):
+    """Three train-step calls (with ACCUM_STEPS 2: an update, then a call
+    whose gradients wait in the accumulator), save, one more call; a fresh
+    state restored from the file and given the same fourth call must be
+    bit-equal: parameters, BatchNorm statistics, Adam's state, the
+    accumulator and the counts."""
+    from vsta_tpu_torch.training.checkpoint import CheckpointManager
+    from vsta_tpu_torch.training.state import create_state, make_train_step
+
+    step = make_train_step(cfg)
+    batches = [train_batch(cfg, cfg.data.batch_size, seed) for seed in range(4)]
+    ckpt = CheckpointManager(str(save_dir))
+    a = create_state(cfg, seed=0, device=dev, steps_per_epoch=4)
+    for b in batches[:3]:
+        step(a, b)
+    ckpt.save("resume_check", a, epoch=0, best_f1=0.0)
+    step(a, batches[3])
+    b_state = create_state(cfg, seed=1, device=dev, steps_per_epoch=4)
+    ckpt.restore("resume_check", b_state)
+    step(b_state, batches[3])
+
+    def flat(state):
+        opt = state.opt_state
+        out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+        out.update({f"acc.{k}": v for k, v in opt.acc.items()})
+        for i, st in opt.inner.state_dict()["state"].items():
+            out.update({f"adam.{i}.{k}": torch.as_tensor(v) for k, v in st.items()})
+        return out, (opt.mini_step, opt.count, state.step)
+
+    (fa, ca), (fb, cb) = flat(a), flat(b_state)
+    differ = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    log(f"[loop] resume on the card: save after 3 calls, restore into a fresh state, 1 call: {len(fa)} tensors "
+        f"(parameters, BatchNorm statistics, Adam moments and steps, accumulator), counts {cb} against {ca}; "
+        f"{len(differ)} differ from 4 uninterrupted calls {differ[:4]}")
+    check(not differ and ca == cb and any(k.startswith("adam.") for k in fa), "resume on the card is not bit-equal")
+    del a, b_state
+    torch.cuda.empty_cache()
+
+
+def loop_phase(dev, cfg_path=FLAGSHIP, tree=None, timeout=600):
+    """The training loop end to end: a synthetic Wildtrack tree (7 views at
+    1080x1920, 10 frames, 12 people) written by the port's generator in a
+    temporary directory; ``cfg_path`` (the flagship) with DATA_ROOT there,
+    EPOCHS 2 and EVAL.INTERVAL 1; ``run_training`` in process (launches
+    counted from 0 around it); then ``python -m vsta_tpu_torch.train
+    --resume`` with EPOCHS 3 and ``python -m vsta_tpu_torch.evaluate
+    --split all`` as subprocesses; the frame-set copy both ways; resume on
+    the card. Returns the loop's launches."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from vsta_tpu_torch.config import from_dict
+    from vsta_tpu_torch.data.synthetic import generate_synthetic_wildtrack
+    from vsta_tpu_torch.data.wildtrack import WildtrackDataset
+    from vsta_tpu_torch.training.loop import run_training
+
+    log("[loop] host probe: " + json.dumps(probe_host()))
+    tree = tree or dict(n_frames=10, n_views=7, n_people=12, img_hw=(1080, 1920))
+    tmp = Path(tempfile.mkdtemp(prefix="vsta_loop_"))
+    try:
+        t = time.perf_counter()
+        root = generate_synthetic_wildtrack(tmp / "wildtrack", **tree)
+        log(f"[loop] synthetic tree {tree}: {time.perf_counter() - t:.1f}s")
+        raw = yaml.safe_load(Path(cfg_path).read_text())
+        raw["DATA"]["DATA_ROOT"] = str(root)
+        raw["TRAIN"]["EPOCHS"] = 2
+        raw["EVAL"]["INTERVAL"] = 1
+        cfg = from_dict(raw)
+        work = tmp / "work"
+        train_ds = WildtrackDataset(cfg, train=True)
+        val_ds = WildtrackDataset(cfg, train=False, cache_from=train_ds)
+        counters = all_counters()
+        reset(counters)
+        t = time.perf_counter()
+        metrics = run_training(cfg, work_dir=str(work), dataset=train_ds, val_dataset=val_ds, device=dev)
+        loop_s = time.perf_counter() - t
+        launches = {c.__name__: c.launches for c in counters}
+        save_dir = work / cfg.runtime.save_dir
+        records = [json.loads(x) for x in (save_dir / "metrics.jsonl").read_text().splitlines()]
+        scalars = [json.loads(x) for x in (save_dir / "scalars.jsonl").read_text().splitlines()]
+        times = {(r["tag"], r["step"]): r["value"] for r in scalars if r["tag"].startswith("time/")}
+        losses = [r["value"] for r in scalars if r["tag"] == "train/loss_iter"]
+        log(f"[loop] run_training {loop_s:.1f}s: returned {json.dumps({k: round(v, 4) for k, v in metrics.items()})}; "
+            f"launches {json.dumps(launches)}; decoders {sorted(train_ds.decoders)}")
+        check([r["epoch"] for r in records] == [0, 1] and all(r.get("n_frames") == 2.0 for r in records),
+              f"two epochs, each with an eval of 2 frames: {records}")
+        check(len(losses) == 8 and all(math.isfinite(x) for x in losses), f"finite losses, 4 steps an epoch: {losses}")
+        check((save_dir / "last").exists() and (save_dir / "best").exists(), "last and best checkpoints")
+        for name in ("warp_tiles", "sample_tiles_grouped", "scatter_taps_grouped"):
+            check(launches[name] > 0, f"{name} was not launched inside the loop")
+        steps2 = times[("time/steps", 1)]
+        log(f"[loop] readings: epoch 1 {times[('time/epoch_s', 0)]:.3f} s (decode), epoch 2 "
+            f"{times[('time/epoch_s', 1)]:.3f} s (cached); a train step in epoch 2 "
+            f"{times[('time/train_s', 1)] / steps2 * 1e3:.2f} ms (host clock over {steps2:.0f} steps, losses fetched); "
+            f"the loop's wait on the train Prefetcher's queue {times[('time/input_wait_s', 1)] / steps2 * 1e3:.2f} ms "
+            f"a step in epoch 2 ({times[('time/input_wait_s', 0)] / times[('time/steps', 0)] * 1e3:.2f} in epoch 1); "
+            f"decoder {sorted(train_ds.decoders)}")
+        del train_ds, val_ds
+        torch.cuda.empty_cache()
+
+        raw["TRAIN"]["EPOCHS"] = 3
+        cfg3 = tmp / "three.yaml"
+        cfg3.write_text(yaml.safe_dump(raw))
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        runs = {
+            "train --resume": ["vsta_tpu_torch.train", "--config", str(cfg3), "--work_dir", str(work), "--resume"],
+            "evaluate --split all": ["vsta_tpu_torch.evaluate", "--config", str(cfg3), "--checkpoint",
+                                     str(save_dir / "best"), "--split", "all"],
+        }
+        for label, args in runs.items():
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, timeout=timeout,
+                               env=env, cwd=str(ROOT))
+            lines = [x for x in r.stdout.splitlines() if x.startswith(("[resume]", "[done]", "[ckpt]", "[time]"))]
+            log(f"[loop] {label}: exit {r.returncode} in {time.perf_counter() - t:.1f}s; " + " | ".join(lines))
+            check(r.returncode == 0, f"{label} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            if label.startswith("train"):
+                check("[resume] from epoch 2" in r.stdout and "[done]" in r.stdout, f"{label}: no resume from epoch 2")
+            else:
+                block = json.loads(r.stdout[r.stdout.index("{"):])
+                log(f"[loop] evaluate: {json.dumps(block)}")
+                check(block["n_frames"] == float(tree["n_frames"]), f"evaluate scored {block['n_frames']} frames")
+        copy_timing(dev)
+        resume_check(dev, cfg, save_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def deform_training_phase(dev, cfg_path=DEFORM):
     """configs/wildtrack_deform.yaml as it stands (batch 2, ACCUM_STEPS 2,
     bf16, ATTN_STRIDE 4: the sampler's backward takes the fused kernel),
@@ -2132,6 +2358,9 @@ def main() -> int:
     train = flagship_training_phase(dev)
     log(f"[train] phase {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
+    loop = loop_phase(dev)
+    log(f"[loop] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
     deform_train = deform_training_phase(dev)
     log(f"[deform-train] phase {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
@@ -2146,15 +2375,15 @@ def main() -> int:
     determinism_phase(dev)
     log(f"[determinism] phase {time.perf_counter() - t:.1f}s")
     # launches on the model paths, each path counted from 0 over its own
-    # run: flagship serving (both warp dispatches) and training, deform
+    # run: flagship serving (both warp dispatches), training and the loop, deform
     # serving and training (ATTN_STRIDE 4 and 1), both families with
     # per-frame cameras, the max and attn fusions. The ablation variants
     # are on no model path: their count is the attribution run's.
-    paths = [train, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train]
+    paths = [train, loop, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train]
     on_paths = {k: sum(path.get(k, 0) for path in paths) for k in train}
     entries += [views_entry, ablation_entry]
     counts = {
-        f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"],
+        f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"] + loop["warp_tiles"],
         f"{WARP_TPU}:353": serve_launches["windowed"],
         **{e["replaces"]: on_paths[e["name"]] for e in entries if e["name"] in on_paths},
         ablation_entry["replaces"]: ablation_entry["launches"],

@@ -72,3 +72,40 @@ def test_cuda_entry_point_raises_without_a_card(monkeypatch):
         create_state(cfg, {}, steps_per_epoch=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_state(cfg, device="cuda", steps_per_epoch=1)
+
+
+def test_loop_and_prefetcher_raise_without_a_card(monkeypatch, tmp_path):
+    """RUNTIME.DEVICE other than cpu names the CUDA device: the loop and a
+    CUDA Prefetcher raise where there is none; cpu stays on the CPU."""
+    from vsta_tpu_torch import config
+    from vsta_tpu_torch.data.pipeline import DevicePut, Prefetcher
+    from vsta_tpu_torch.training.loop import run_training
+    from vsta_tpu_torch.utils.platform import runtime_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.from_dict({"RUNTIME": {"DEVICE": "tpu"}, "DATA": {"DATA_ROOT": str(tmp_path / "none")}})
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_training(cfg, work_dir=str(tmp_path), device=device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Prefetcher([], [], 1, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DevicePut("cuda:0")
+    for name in ("tpu", "gpu", "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            runtime_device(name)
+    assert runtime_device("cpu") == runtime_device("CPU") == torch.device("cpu")
+    assert not list(tmp_path.iterdir())  # nothing was written before the raise
+
+
+@pytest.mark.parametrize("cli", ["train", "evaluate"])
+def test_clis_raise_without_a_card(cli, tmp_path):
+    """``python -m vsta_tpu_torch.<cli>`` with RUNTIME.DEVICE tpu exits
+    non-zero here, where no CUDA device exists."""
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f'RUNTIME: {{DEVICE: "tpu"}}\nDATA: {{DATA_ROOT: "{tmp_path / "none"}"}}\n')
+    res = subprocess.run(
+        [sys.executable, "-m", f"vsta_tpu_torch.{cli}", "--config", str(cfg)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0 and "no CUDA device" in res.stderr, res.stderr[-2000:]

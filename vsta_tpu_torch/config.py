@@ -2,8 +2,11 @@
 
 The port's own copy of the JAX package's YAML schema (sections
 DATA/MODEL/TRAIN/LOSS/RUNTIME/EVAL/TRACK, same key names and defaults),
-backed by frozen dataclasses. ``RUNTIME.DEVICE`` is parsed but not
-obeyed: the port's entry points take the device as an argument.
+backed by frozen dataclasses. ``RUNTIME.DEVICE`` is obeyed by the
+training loop and the train/evaluate CLIs (``cpu``, or the CUDA device for
+any other value: ``utils/platform.runtime_device``); the library entry
+points (``build_serving_fn``, ``create_state``) take the device as an
+argument.
 """
 
 from __future__ import annotations
@@ -103,8 +106,8 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class RuntimeConfig:
-    # parsed for schema compatibility; the port takes its device as an
-    # argument of each entry point instead
+    # 'cpu', or any other value for the CUDA device (utils/platform.py);
+    # the library entry points take the device as an argument instead
     device: str = "tpu"
     num_workers: int = 4
     save_dir: str = "checkpoints/"

@@ -6,6 +6,7 @@ converted with ``np.asarray``) onto :class:`~vsta_tpu_torch.models.BEVNet`
 names:
 
 * conv kernels HWIO -> OIHW (a depthwise ``[k, k, 1, C]`` -> ``[C, 1, k, k]``);
+  the ``simple`` backbone's ``Conv_0`` / ``Conv_1`` -> ``conv0`` / ``conv1``;
 * BatchNorm ``scale``/``bias`` from params, ``mean``/``var`` from
   batch_stats; GroupNorm ``scale``/``bias``;
 * ``view_proj`` [V, F, C_out] and ``view_proj_bias`` (concat), or
@@ -92,14 +93,18 @@ def _from_flax(params: Optional[Mapping], stats: Optional[Mapping]) -> StateDict
     """The port's names for a params tree, a batch_stats tree, or both."""
     out: StateDict = {}
     bb = None if params is None else params["encoder"]["backbone"]
-    bb_s = None if stats is None else stats["encoder"]["backbone"]
-    if bb is not None:
-        _conv(bb["stem_conv"], out, "encoder.backbone.stem_conv")
-    _bn(bb and bb["stem_bn"], bb_s and bb_s["stem_bn"], out, "encoder.backbone.stem_bn")
-    for si, (_, _, repeats, _, _) in enumerate(B0_STAGES):
-        for r in range(repeats):
-            key = f"stage{si}_block{r}"
-            _mbconv(bb and bb[key], bb_s and bb_s[key], out, f"encoder.backbone.stages.{si}.{r}")
+    bb_s = None if not stats else stats["encoder"]["backbone"]
+    if bb is not None and "Conv_0" in bb:  # the simple backbone: two convs, no BatchNorm
+        _conv(bb["Conv_0"], out, "encoder.backbone.conv0")
+        _conv(bb["Conv_1"], out, "encoder.backbone.conv1")
+    elif bb is not None or bb_s is not None:
+        if bb is not None:
+            _conv(bb["stem_conv"], out, "encoder.backbone.stem_conv")
+        _bn(bb and bb["stem_bn"], bb_s and bb_s["stem_bn"], out, "encoder.backbone.stem_bn")
+        for si, (_, _, repeats, _, _) in enumerate(B0_STAGES):
+            for r in range(repeats):
+                key = f"stage{si}_block{r}"
+                _mbconv(bb and bb[key], bb_s and bb_s[key], out, f"encoder.backbone.stages.{si}.{r}")
     if params is None:
         return out
     unknown = sorted(set(params) - _TOP_LEVEL)
@@ -130,8 +135,10 @@ def _from_flax(params: Optional[Mapping], stats: Optional[Mapping]) -> StateDict
 
 
 def state_dict_from_flax(variables: Mapping) -> StateDict:
-    """Flax ``BEVNet`` variables (numpy leaves) -> the port's state_dict."""
-    return _from_flax(variables["params"], variables["batch_stats"])
+    """Flax ``BEVNet`` variables (numpy leaves) -> the port's state_dict
+    (a model without BatchNorm, as the ``simple`` backbone's, has no
+    ``batch_stats``)."""
+    return _from_flax(variables["params"], variables.get("batch_stats"))
 
 
 def params_from_flax(params: Mapping) -> StateDict:

@@ -1,0 +1,73 @@
+"""Evaluation CLI of the port: the twin of ``evaluate.py``.
+
+    python -m vsta_tpu_torch.evaluate --config configs/wildtrack.yaml \\
+        --checkpoint checkpoints/best [--split val|train|all]
+
+Loads a checkpoint of this package (``training/checkpoint.py``), scores the
+split (the 400/100 or 80/20 protocol of ``data/pipeline.split_train_val``)
+and prints precision, recall, F1, MLE, MODA and MODP as one JSON block,
+NaN as null. Runs on the CUDA device unless ``RUNTIME.DEVICE`` is ``cpu``.
+The int8 paths (``--quantize-head``, ``--quantize-encoder``) are not
+ported: they raise.
+"""
+
+import argparse
+import json
+import math
+from pathlib import Path
+
+from .config import load_config
+from .data.pipeline import Prefetcher, split_train_val
+from .data.wildtrack import WildtrackDataset
+from .training.checkpoint import CheckpointManager
+from .training.loop import one_device
+from .training.metrics import DetectionMetrics
+from .training.state import create_state, make_eval_step
+from .utils.platform import runtime_device
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--checkpoint", type=str, default="checkpoints/best")
+    parser.add_argument("--split", type=str, default="val", choices=["val", "train", "all"])
+    parser.add_argument("--quantize-head", action="store_true", default=False,
+                        help="int8 detector stem: not ported (ROADMAP Queue 1 item 6)")
+    parser.add_argument("--quantize-encoder", action="store_true", default=False,
+                        help="int8 ResNet encoder: not ported (ROADMAP Queue 1 item 6)")
+    args = parser.parse_args()
+    if args.quantize_head or args.quantize_encoder:
+        raise NotImplementedError("the int8 serving paths are ROADMAP Queue 1 item 6, 'int8'")
+
+    cfg = load_config(args.config)
+    dev = runtime_device(cfg.runtime.device)
+    one_device(cfg)
+    ds = WildtrackDataset(cfg, train=False)
+    idx_train, idx_val = split_train_val(len(ds), cfg.train.seed)
+    indices = {"val": idx_val, "train": idx_train, "all": list(range(len(ds)))}[args.split]
+    dl = Prefetcher(ds, indices, cfg.data.batch_size, shuffle=False, num_workers=cfg.runtime.num_workers, device=dev)
+
+    state = create_state(cfg, device=dev, steps_per_epoch=1)
+    ckpt_path = Path(args.checkpoint)
+    state, epoch, f1 = CheckpointManager(str(ckpt_path.parent)).restore(ckpt_path.name, state)
+    print(f"[ckpt] loaded {args.checkpoint} (epoch {epoch}, f1={f1:.3f})")
+
+    eval_step = make_eval_step(cfg)
+    acc = DetectionMetrics(match_dist=cfg.eval.nms_dist_m)
+    for batch in dl:
+        out = eval_step(state, batch)
+        acc.update_batch(
+            out["boxes"].cpu().numpy(),
+            out["scores"].cpu().numpy(),
+            out["valid"].cpu().numpy(),
+            batch["boxes_world"].cpu().numpy(),
+            batch["num_boxes"].cpu().numpy(),
+            batch["batch_mask"].cpu().numpy(),
+        )
+    # a zero-frame eval gives NaN metrics, which are not JSON: null
+    clean = {k: (None if math.isnan(v) else round(float(v), 4)) for k, v in acc.summary().items()}
+    print(json.dumps(clean, indent=2))
+
+
+if __name__ == "__main__":
+    main()

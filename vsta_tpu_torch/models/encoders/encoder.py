@@ -1,8 +1,10 @@
 """Per-view encoder: one shared backbone over all B*V images + 1x1 proj.
 
 images [B, V, H, W, 3] (NHWC, as the JAX package) -> [B, V, Hf, Wf, F].
-``norm`` is MODEL.NORM: EfficientNet-B0 takes ``'batch'`` only, and any
-other value raises ``ValueError`` as the JAX package does. With
+The backbone is EfficientNet-B0 or ``simple`` (two stride-2 convolutions
+of ``FEAT_DIM`` channels, the reference's fallback); the ResNets raise.
+``norm`` is MODEL.NORM: both take ``'batch'`` only, and any other value
+raises ``ValueError`` as the JAX package does. With
 ``fold_proj`` the 1x1 projection is not applied: the encoder returns
 the raw pyramid map with the projection's kernel [C_raw, F] and bias [F],
 for the caller to fold into the next linear op. Internally the maps are
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 from .efficientnet import EfficientNetFeatures, conv
+from .simple import SimpleConvFeatures
 
 # pyramid channels of EfficientNet-B0 (timm feature_info order)
 B0_CHANNELS = (16, 24, 40, 112, 320)
@@ -33,10 +36,10 @@ class ViewEncoder(nn.Module):
         norm: str = "batch",
     ):
         super().__init__()
-        if backbone != "efficientnet_b0":
+        if backbone not in ("efficientnet_b0", "simple"):
             raise NotImplementedError(
-                f"backbone {backbone!r}: the port has efficientnet_b0 only; the "
-                "others are ROADMAP Queue 1, 'Other backbones'"
+                f"backbone {backbone!r}: the port has efficientnet_b0 and simple; the "
+                "others are ROADMAP Queue 1 item 2, 'Other backbones'"
             )
         if norm != "batch":  # as the reference's build_backbone: only ResNets take another norm
             raise ValueError(
@@ -45,12 +48,17 @@ class ViewEncoder(nn.Module):
             )
         if not isinstance(out_index, int):
             raise NotImplementedError(
-                "multi-scale OUT_INDEX tuples are ROADMAP Queue 1, 'Multi-scale out_index'"
+                "multi-scale OUT_INDEX tuples are ROADMAP Queue 1 item 2, 'Multi-scale out_index'"
             )
         self.out_index = out_index
         self.fold_proj = fold_proj
-        self.backbone = EfficientNetFeatures(dtype)
-        self.proj = nn.Conv2d(B0_CHANNELS[out_index], feat_dim, 1)
+        if backbone == "simple":  # sized by FEAT_DIM, as the reference's fallback stack
+            self.backbone = SimpleConvFeatures(feat_dim, dtype)
+            raw_channels = feat_dim
+        else:
+            self.backbone = EfficientNetFeatures(dtype)
+            raw_channels = B0_CHANNELS[out_index]
+        self.proj = nn.Conv2d(raw_channels, feat_dim, 1)
 
     def forward(
         self, images: torch.Tensor

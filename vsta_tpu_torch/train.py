@@ -1,0 +1,36 @@
+"""Training CLI of the port: the twin of ``train.py``.
+
+    python -m vsta_tpu_torch.train --config configs/wildtrack.yaml \\
+        [--resume] [--save_vis] [--work_dir DIR] [--profile N]
+
+Runs on the CUDA device unless ``RUNTIME.DEVICE`` is ``cpu``; without a
+CUDA device any other value raises. ``--profile N`` writes a
+``torch.profiler`` trace of the first N train steps to SAVE_DIR/profile.
+"""
+
+import argparse
+
+from .config import load_config
+from .training.loop import run_training
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--save_vis", action="store_true", default=False)
+    parser.add_argument("--resume", action="store_true", default=False)
+    parser.add_argument("--work_dir", type=str, default=".")
+    parser.add_argument(
+        "--profile", type=int, default=0, metavar="N",
+        help="capture a torch.profiler trace of the first N train steps (written to SAVE_DIR/profile)",
+    )
+    args = parser.parse_args()
+    cfg = load_config(args.config)
+    metrics = run_training(
+        cfg, work_dir=args.work_dir, save_vis=args.save_vis, resume=args.resume, profile_steps=args.profile
+    )
+    print("[done]", {k: round(v, 4) for k, v in metrics.items()})
+
+
+if __name__ == "__main__":
+    main()
