@@ -97,7 +97,29 @@ Phases, each of which raises on failure (exit code != 0):
    four times;
 10. determinism: the deform family's residual upsample backward twice,
    bit-equal, and the ops that torch.use_deterministic_algorithms(True,
-   warn_only=True) names in one train step of each config.
+   warn_only=True) names in one train step of each config (the ResNet
+   train paths' two runs are held bit-equal in phase 12);
+11. the ResNet family served (after phase 5): configs/wildtrack_sanity.yaml
+   (ResNet-18, f32), configs/wildtrack_v1_resnet50.yaml and
+   configs/wildtrack_ms_max.yaml (ResNet-18, OUT_INDEX [1, 2], FUSION max,
+   2 views; bf16) at full width with random weights, batch 16 and 1:
+   request times, peak memory, one launch of sample_tiles_grouped a
+   request, the heatmaps with the kernel against its plain version, and
+   sample_tiles_grouped at the shape a batch-16 request gives it (held to
+   its plain version, timed, bound);
+12. the ResNet family trained: each of the three configs as it stands
+   (batch 1 f32; batch 2, ACCUM_STEPS 2, bf16; batch 4 bf16) and the sanity
+   config with MODEL.NORM group, through the training phase's readings
+   (sample_tiles_grouped and scatter_taps_grouped once a call; gradients
+   with the kernels against the plain versions), one call's gradients run
+   twice and bit-equal, and rows 4 and 3 at the shapes a call gives them;
+   then [pretrained]: a torchvision-named ResNet-18 state_dict from a seed
+   in a temporary .pth, loaded on the card by create_state with
+   MODEL.PRETRAINED true, equal to the file's; and in phase 7, after
+   evaluate, ``python -m vsta_tpu_torch.inference --track --clips 2`` on the
+   loop's tree and checkpoint, with EVAL.CONF_THRESH 0.05, which the
+   untrained heatmap clears (a JSON a frame, with its clip, and confirmed
+   tracks in both clips).
 
 Prints the kernels JSON line (eight kernels), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -208,6 +230,12 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """Spacing of bf16 numbers at |x| (8 significant bits)."""
     e = torch.floor(torch.log2(x.abs().float().clamp_min(2.0**-126)))
     return torch.exp2(e - 7)
+
+
+def f32_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of float32 numbers at |x| (24 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().float().clamp_min(2.0**-126)))
+    return torch.exp2(e - 23)
 
 
 def hold(name: str, got: torch.Tensor, ref: torch.Tensor, rule: str) -> float:
@@ -724,6 +752,117 @@ def partition_cases(dev, idx, wts, P):
         "mirror: " + "; ".join(f"{name}: {', '.join(parts)}" for name, parts in taken.items()))
 
 
+def measure(dev, kind, maps, gout, i, w, max_abs_err, library=True):
+    """One grouped kernel at one shape: its time, the plain version's,
+    the library yardstick's and the bound from these inputs;
+    ``max_abs_err`` is the case's error against the plain version."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    Gm, Pm, Km = maps.shape
+    Nm = i.shape[1]
+    itemsize = maps.element_size()
+    live = w != 0
+    n_live, n_taps = int(live.sum()), w.numel()
+    rows_g = torch.arange(Gm, device=dev)[:, None, None] * Pm + i
+    rows_read = torch.unique(rows_g).numel()
+    idx_bytes, wts_bytes = Gm * Nm * 4 * 4, Gm * Nm * 4 * 4
+    map_bytes, gout_bytes = rows_read * Km * itemsize, Gm * Nm * Km * itemsize
+    fn, plain, args = {
+        "sample_tiles_grouped": (gc.sample_tiles_grouped, gc.sample_tiles_grouped_ref, (maps, i, w)),
+        "scatter_tapdot_grouped": (gc.scatter_tapdot_grouped, gc.scatter_tapdot_grouped_ref, (maps, gout, i, w)),
+        "scatter_taps_grouped": (gc.scatter_taps_grouped, gc.scatter_taps_grouped_ref, (gout, i, w, Pm)),
+        "taps_dot_grouped": (gc.taps_dot_grouped, gc.taps_dot_grouped_ref, (maps, gout, i)),
+    }[kind]
+    ms = cuda_ms(fn, *args, warmup=2, iters=10)
+    plain_ms = cuda_ms(plain, *args, warmup=1, iters=3)
+    library_ms, lib_s, more = None, "library_ms=null", {}
+    if kind in ("scatter_taps_grouped", "scatter_tapdot_grouped"):
+        # the two parts of the wrapper's time: the sort, and the walk
+        # with its carries over a LUT built beforehand
+        lut = gc.tap_lut(i, w, Pm)
+        more["lut_ms"] = cuda_ms(gc.tap_lut, i, w, Pm, warmup=2, iters=10)
+        more["kernel_ms"] = cuda_ms(fn, *args, lut, warmup=2, iters=10)
+        del lut
+
+    def taps_matrix():
+        """The sampler as a sparse [G*N, G*P] matrix (4 taps a row)."""
+        row_of = torch.arange(Gm * Nm, device=dev)[:, None].expand(Gm * Nm, 4).reshape(-1)
+        at = torch.stack([row_of, rows_g.reshape(-1)])
+        return torch.sparse_coo_tensor(at, w.reshape(-1), (Gm * Nm, Gm * Pm))
+
+    if kind == "sample_tiles_grouped":
+        nbytes = map_bytes + gout_bytes + idx_bytes + wts_bytes  # out has gout's size
+        flops = 2 * n_live * Km
+        if library:
+            csr = taps_matrix().coalesce().to(maps.dtype).to_sparse_csr()
+            library_ms = cuda_ms(torch.sparse.mm, csr, maps.reshape(Gm * Pm, Km), warmup=1, iters=5)
+            lib_s = f"library_ms(sparse.mm, CSR of the taps)={library_ms:.4f}"
+    elif kind == "scatter_taps_grouped":
+        nbytes = gout_bytes + idx_bytes + wts_bytes + Gm * Pm * Km * 4
+        flops = 2 * n_live * Km
+        if library:
+            # two ways: the transposed CSR built beforehand, and built
+            # from the taps inside the timed call, as the kernel's LUT is
+            g2 = gout.reshape(Gm * Nm, Km)
+            csr_t = taps_matrix().t().coalesce().to(gout.dtype).to_sparse_csr()
+            library_ms = cuda_ms(torch.sparse.mm, csr_t, g2, warmup=1, iters=5)
+            del csr_t
+            more["library_built_ms"] = cuda_ms(
+                lambda: torch.sparse.mm(taps_matrix().t().coalesce().to(gout.dtype).to_sparse_csr(), g2),
+                warmup=1, iters=5)
+            lib_s = (f"library_ms(sparse.mm, transposed CSR of the taps, built beforehand)={library_ms:.4f}, "
+                     f"with the CSR built in the timed call={more['library_built_ms']:.4f}")
+    elif kind == "taps_dot_grouped":
+        nbytes = map_bytes + gout_bytes + idx_bytes + Gm * Nm * 4 * 4  # it reads no weights
+        flops = 2 * n_taps * Km
+        if library:
+            # torch.sparse.sampled_addmm, (gout @ maps^T) sampled at the
+            # taps' CSR pattern, is the same function. On CUDA it takes
+            # float32, not bfloat16, so it runs on float32 copies of these
+            # inputs, beside the kernel's own time on the same copies.
+            # The padded anchored taps of a sample are four distinct
+            # rows in increasing order, so idx is the pattern's columns
+            # and the values come back in tap order.
+            check(bool((i[..., 1:] > i[..., :-1]).all()), f"{kind}: a sample's taps are not distinct and increasing")
+            maps_f, gout_f = maps.float(), gout.float()
+            crow = torch.arange(Gm * Nm + 1, device=dev, dtype=torch.int32) * 4
+            pattern = torch.sparse_csr_tensor(
+                crow, rows_g.reshape(-1).int(), torch.zeros(n_taps, device=dev), (Gm * Nm, Gm * Pm),
+                check_invariants=False)
+            dense = (pattern, gout_f.reshape(Gm * Nm, Km), maps_f.reshape(Gm * Pm, Km).t())
+            got = torch.sparse.sampled_addmm(*dense, beta=0.0).values().reshape(Gm, Nm, 4)
+            hold(f"sampled_addmm vs taps_dot_grouped_ref {Gm}x{Nm}x{Km} f32", got, plain(maps_f, gout_f, i), "f32")
+            del got
+            library_ms = cuda_ms(torch.sparse.sampled_addmm, *dense, beta=0.0, warmup=1, iters=5)
+            more = {"library_dtype": "float32", "ms_float32": cuda_ms(fn, maps_f, gout_f, i, warmup=2, iters=10)}
+            lib_s = (f"library_ms(sparse.sampled_addmm on the taps' CSR pattern, float32: bfloat16 is not "
+                     f"implemented)={library_ms:.4f} beside the kernel's float32 ms={more['ms_float32']:.4f}")
+            del maps_f, gout_f, pattern, dense
+    else:
+        nbytes = map_bytes + gout_bytes + idx_bytes + wts_bytes + Gm * Pm * Km * 4 + Gm * Nm * 4 * 4
+        flops = 2 * n_live * Km + 2 * n_taps * Km
+        lib_s = "library_ms=null (no one call gives dmaps and d_wts)"
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[maps.dtype] * 1e3
+    shape = f"G={Gm} P={Pm} N={Nm} K={Km} {str(maps.dtype).split('.')[-1]}"
+    reading = {
+        "shape": shape, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, **more,
+    }
+    split_s = (f" (lut_ms={more['lut_ms']:.4f} + kernel_ms={more['kernel_ms']:.4f})" if "lut_ms" in more else "")
+    if kind in ("sample_tiles_grouped", "taps_dot_grouped"):  # out, like maps, is a fresh aligned tensor
+        more["partition"] = "V={} L={} S={} cells={} staged={}".format(
+            *gc.library_partition(kind, Km, maps.dtype, maps, maps if kind == "sample_tiles_grouped" else gout))
+        more["device_ms"] = kernel_device_ms(fn, args, KERNEL_NAMES[kind])
+        split_s += f" (device_ms={more['device_ms']} [{more['partition']}])"
+    log(f"[grouped] {kind} {shape}: ms={ms:.4f}{split_s} plain_ms={plain_ms:.4f} {lib_s} "
+        f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}: {nbytes / 1e6:.1f} MB; "
+        f"{flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}, {rows_read} map rows touched) "
+        f"roofline_share={reading['bound_ms'] / ms:.3f}")
+    return reading
+
+
 def grouped_phase(dev):
     """The grouped sampler's four kernels against their plain versions at
     the shapes the training paths give them, and their times: the
@@ -899,112 +1038,6 @@ def grouped_phase(dev):
     del w_maps
     torch.cuda.empty_cache()
 
-    def measure(kind, maps, gout, i, w, err_key, library=True):
-        """One kernel at one shape (bf16): its time, the plain version's,
-        the library yardstick's and the bound from these inputs."""
-        Gm, Pm, Km = maps.shape
-        Nm = i.shape[1]
-        itemsize = maps.element_size()
-        live = w != 0
-        n_live, n_taps = int(live.sum()), w.numel()
-        rows_g = torch.arange(Gm, device=dev)[:, None, None] * Pm + i
-        rows_read = torch.unique(rows_g).numel()
-        idx_bytes, wts_bytes = Gm * Nm * 4 * 4, Gm * Nm * 4 * 4
-        map_bytes, gout_bytes = rows_read * Km * itemsize, Gm * Nm * Km * itemsize
-        fn, plain, args = {
-            "sample_tiles_grouped": (gc.sample_tiles_grouped, gc.sample_tiles_grouped_ref, (maps, i, w)),
-            "scatter_tapdot_grouped": (gc.scatter_tapdot_grouped, gc.scatter_tapdot_grouped_ref, (maps, gout, i, w)),
-            "scatter_taps_grouped": (gc.scatter_taps_grouped, gc.scatter_taps_grouped_ref, (gout, i, w, Pm)),
-            "taps_dot_grouped": (gc.taps_dot_grouped, gc.taps_dot_grouped_ref, (maps, gout, i)),
-        }[kind]
-        ms = cuda_ms(fn, *args, warmup=2, iters=10)
-        plain_ms = cuda_ms(plain, *args, warmup=1, iters=3)
-        library_ms, lib_s, more = None, "library_ms=null", {}
-        if kind in ("scatter_taps_grouped", "scatter_tapdot_grouped"):
-            # the two parts of the wrapper's time: the sort, and the walk
-            # with its carries over a LUT built beforehand
-            lut = gc.tap_lut(i, w, Pm)
-            more["lut_ms"] = cuda_ms(gc.tap_lut, i, w, Pm, warmup=2, iters=10)
-            more["kernel_ms"] = cuda_ms(fn, *args, lut, warmup=2, iters=10)
-            del lut
-
-        def taps_matrix():
-            """The sampler as a sparse [G*N, G*P] matrix (4 taps a row)."""
-            row_of = torch.arange(Gm * Nm, device=dev)[:, None].expand(Gm * Nm, 4).reshape(-1)
-            at = torch.stack([row_of, rows_g.reshape(-1)])
-            return torch.sparse_coo_tensor(at, w.reshape(-1), (Gm * Nm, Gm * Pm))
-
-        if kind == "sample_tiles_grouped":
-            nbytes = map_bytes + gout_bytes + idx_bytes + wts_bytes  # out has gout's size
-            flops = 2 * n_live * Km
-            if library:
-                csr = taps_matrix().coalesce().to(maps.dtype).to_sparse_csr()
-                library_ms = cuda_ms(torch.sparse.mm, csr, maps.reshape(Gm * Pm, Km), warmup=1, iters=5)
-                lib_s = f"library_ms(sparse.mm, CSR of the taps)={library_ms:.4f}"
-        elif kind == "scatter_taps_grouped":
-            nbytes = gout_bytes + idx_bytes + wts_bytes + Gm * Pm * Km * 4
-            flops = 2 * n_live * Km
-            if library:
-                # two ways: the transposed CSR built beforehand, and built
-                # from the taps inside the timed call, as the kernel's LUT is
-                g2 = gout.reshape(Gm * Nm, Km)
-                csr_t = taps_matrix().t().coalesce().to(gout.dtype).to_sparse_csr()
-                library_ms = cuda_ms(torch.sparse.mm, csr_t, g2, warmup=1, iters=5)
-                del csr_t
-                more["library_built_ms"] = cuda_ms(
-                    lambda: torch.sparse.mm(taps_matrix().t().coalesce().to(gout.dtype).to_sparse_csr(), g2),
-                    warmup=1, iters=5)
-                lib_s = (f"library_ms(sparse.mm, transposed CSR of the taps, built beforehand)={library_ms:.4f}, "
-                         f"with the CSR built in the timed call={more['library_built_ms']:.4f}")
-        elif kind == "taps_dot_grouped":
-            nbytes = map_bytes + gout_bytes + idx_bytes + Gm * Nm * 4 * 4  # it reads no weights
-            flops = 2 * n_taps * Km
-            if library:
-                # torch.sparse.sampled_addmm, (gout @ maps^T) sampled at the
-                # taps' CSR pattern, is the same function. On CUDA it takes
-                # float32, not bfloat16, so it runs on float32 copies of these
-                # inputs, beside the kernel's own time on the same copies.
-                # The padded anchored taps of a sample are four distinct
-                # rows in increasing order, so idx is the pattern's columns
-                # and the values come back in tap order.
-                check(bool((i[..., 1:] > i[..., :-1]).all()), f"{kind}: a sample's taps are not distinct and increasing")
-                maps_f, gout_f = maps.float(), gout.float()
-                crow = torch.arange(Gm * Nm + 1, device=dev, dtype=torch.int32) * 4
-                pattern = torch.sparse_csr_tensor(
-                    crow, rows_g.reshape(-1).int(), torch.zeros(n_taps, device=dev), (Gm * Nm, Gm * Pm),
-                    check_invariants=False)
-                dense = (pattern, gout_f.reshape(Gm * Nm, Km), maps_f.reshape(Gm * Pm, Km).t())
-                got = torch.sparse.sampled_addmm(*dense, beta=0.0).values().reshape(Gm, Nm, 4)
-                hold(f"sampled_addmm vs taps_dot_grouped_ref {Gm}x{Nm}x{Km} f32", got, plain(maps_f, gout_f, i), "f32")
-                del got
-                library_ms = cuda_ms(torch.sparse.sampled_addmm, *dense, beta=0.0, warmup=1, iters=5)
-                more = {"library_dtype": "float32", "ms_float32": cuda_ms(fn, maps_f, gout_f, i, warmup=2, iters=10)}
-                lib_s = (f"library_ms(sparse.sampled_addmm on the taps' CSR pattern, float32: bfloat16 is not "
-                         f"implemented)={library_ms:.4f} beside the kernel's float32 ms={more['ms_float32']:.4f}")
-                del maps_f, gout_f, pattern, dense
-        else:
-            nbytes = map_bytes + gout_bytes + idx_bytes + wts_bytes + Gm * Pm * Km * 4 + Gm * Nm * 4 * 4
-            flops = 2 * n_live * Km + 2 * n_taps * Km
-            lib_s = "library_ms=null (no one call gives dmaps and d_wts)"
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[maps.dtype] * 1e3
-        shape = f"G={Gm} P={Pm} N={Nm} K={Km} {str(maps.dtype).split('.')[-1]}"
-        reading = {
-            "shape": shape, "max_abs_err": errs[err_key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, **more,
-        }
-        split_s = (f" (lut_ms={more['lut_ms']:.4f} + kernel_ms={more['kernel_ms']:.4f})" if "lut_ms" in more else "")
-        if kind in ("sample_tiles_grouped", "taps_dot_grouped"):  # out, like maps, is a fresh aligned tensor
-            more["partition"] = "V={} L={} S={} cells={} staged={}".format(
-                *gc.library_partition(kind, Km, maps.dtype, maps, maps if kind == "sample_tiles_grouped" else gout))
-            more["device_ms"] = kernel_device_ms(fn, args, KERNEL_NAMES[kind])
-            split_s += f" (device_ms={more['device_ms']} [{more['partition']}])"
-        log(f"[grouped] {kind} {shape}: ms={ms:.4f}{split_s} plain_ms={plain_ms:.4f} {lib_s} "
-            f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}: {nbytes / 1e6:.1f} MB; "
-            f"{flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}, {rows_read} map rows touched) "
-            f"roofline_share={reading['bound_ms'] / ms:.3f}")
-        return reading
-
     flag = (maps32[..., :K].to(bf).contiguous(), gout32[..., :K].to(bf).contiguous(), idx, wts)
     query = (maps32.to(bf).contiguous(), gout32.to(bf).contiguous(), idx, wts)
     s4, s4b16, s1 = deform["G=56 N=10800"], deform["G=448 N=10800"], deform["G=56 N=172800"]
@@ -1031,7 +1064,7 @@ def grouped_phase(dev):
     )
     entries = []
     for kind, line, shapes in plan:
-        readings = [measure(kind, *inputs, key, library=lib) for inputs, key, lib in shapes]
+        readings = [measure(dev, kind, *inputs, errs[key], library=lib) for inputs, key, lib in shapes]
         first = dict(readings[0])
         entries.append({
             "name": kind, "route": "cuda", "source": GROUPED_SRC, "replaces": f"{WARP_TPU}:{line}",
@@ -1296,8 +1329,10 @@ def wake_sampling_heads(state, seed=7, scale=0.05):
 
 def heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(16, 1)):
     """The same requests with every kernel and with every plain version:
-    both sum in f32 and round once, so the bf16 heatmaps may differ by no
-    more than 2 bf16 ulps of |ref|."""
+    both sum in f32 and round once, so the heatmaps of a bf16 model may
+    differ by no more than 2 bf16 ulps of |ref|, and an f32 model's by no
+    more than 16 f32 ulps of |ref| (summation order alone; a bf16 rounding
+    anywhere on the path would exceed it by orders of magnitude)."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
     from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
@@ -1314,10 +1349,13 @@ def heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(16, 1)):
             model.warp, model.views_sum, model.grouped = warp_tiles, warp_views_sum, gc.KERNELS
         check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
         diff = (got - ref).abs()
-        ok = bool((diff <= 2 * bf16_ulp(ref)).all())
-        log(f"[{label}] bf16 B={B} heatmap, kernels vs plain versions: max_abs_diff={float(diff.max()):.3e} "
-            f"(<= 2 bf16 ulps of |ref|) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{label}: bf16 heatmap at batch {B} with the kernels disagrees with the plain versions")
+        f32 = model.dtype == torch.float32
+        ok = bool((diff <= (16 * f32_ulp(ref) if f32 else 2 * bf16_ulp(ref))).all())
+        dtype = str(model.dtype).split(".")[-1]
+        log(f"[{label}] {dtype} B={B} heatmap, kernels vs plain versions: max_abs_diff={float(diff.max()):.3e}, "
+            f"largest in f32 ulps of |ref| {float((diff / f32_ulp(ref)).max()):.1f} "
+            f"(<= {'16 f32' if f32 else '2 bf16'} ulps of |ref|) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: {dtype} heatmap at batch {B} with the kernels disagrees with the plain versions")
 
 
 def perframe_serving_phase(dev, cfg_path, family):
@@ -1553,8 +1591,11 @@ def train_batch_perframe(cfg, B, seed):
     return batch
 
 
+B0_STATS = ("encoder.backbone.stem_bn.running_mean", "encoder.backbone.stages.6.0.project_bn.running_var")
+
+
 def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=True, named=(), extra=None,
-                   batch_fn=train_batch):
+                   batch_fn=train_batch, stats=B0_STATS):
     """Train-step calls of ``cfg`` on the card: time a call, its split,
     peak memory; each kernel's launches a call against ``per_call``;
     parameters that move on every ACCUM_STEPS-th call and BatchNorm
@@ -1563,8 +1604,9 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
     ``named`` on a line of their own. ``extra(grads_with, g_kernel,
     spread)`` runs a path's own check (``spread``: the worst distance
     between two runs with the kernels). ``per_call`` names the kernels a
-    call launches (the others: never); ``batch_fn`` makes the batches.
-    Returns the launches."""
+    call launches (the others: never); ``batch_fn`` makes the batches;
+    ``stats`` names BatchNorm statistics that must move on every call
+    (none under GroupNorm). Returns the launches."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
     from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
@@ -1580,7 +1622,7 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
         f"compute dtype {model.dtype}, {sum(p.numel() for p in model.parameters())} parameters")
     train_step = make_train_step(cfg)
     batches = [batch_fn(cfg, B, seed) for seed in range(4)]
-    stats = ["encoder.backbone.stem_bn.running_mean", "encoder.backbone.stages.6.0.project_bn.running_var"]
+    stats = list(stats)
 
     def snapshot(names):
         sd = model.state_dict()
@@ -1611,7 +1653,8 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
     log(f"[{label}] {warm + timed} calls: per call (host clock, synchronised) median={med * 1e3:.2f} ms "
         f"all={[round(x * 1e3, 2) for x in lat]} -> {B / med:.2f} frame sets/s; peak device memory {peak:.2f} GiB; "
         f"last losses {json.dumps({k: round(float(v), 4) for k, v in metrics.items()})}")
-    log(f"[{label}] parameters moved on every {cfg.train.accum_steps}nd call only, BatchNorm statistics on every call; "
+    moved_s = "BatchNorm statistics on every call" if stats else "no BatchNorm statistics (GroupNorm)"
+    log(f"[{label}] parameters moved on every {cfg.train.accum_steps}nd call only, {moved_s}; "
         f"launches {json.dumps(launches)}")
     for name, n in launches.items():
         check(n == per_call.get(name, 0) * (warm + timed),
@@ -1657,12 +1700,14 @@ def training_phase(dev, cfg, label, per_call, watched, warm=2, timed=8, profile=
     check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
     spread = grad_distance(g_again, g_kernel)
     dist = grad_distance(g_kernel, g_plain)
-    limit = 2e-2
+    # the plain scatter adds with atomics in another order: in bf16 dfeats
+    # is then rounded to bf16; in f32 nothing is rounded below f32, and a
+    # bf16 rounding anywhere would put the distance above 1e-3
+    limit = 1e-5 if model.dtype == torch.float32 else 2e-2
     worst = ", ".join(f"{d:.3e} ({k})" for d, k in dist[:3])
     log(f"[{label}] gradients, kernels vs plain versions: per-parameter ||a-b|| / max(||b||, 1e-2 max||b||): "
         f"worst {worst}; median {dist[len(dist) // 2][0]:.3e}; kernels run twice: worst {spread[0][0]:.3e}; "
-        f"limit {limit:.0e} (bf16: the plain scatter adds with atomics in another order, and dfeats is "
-        f"rounded to bf16)")
+        f"limit {limit:.0e} ({model.dtype})")
     check(dist[0][0] <= limit, f"{label}: gradients with the kernels disagree with the plain versions ({worst})")
     if named:
         by_name = {k: d for d, k in dist}
@@ -1901,21 +1946,30 @@ def loop_phase(dev, cfg_path=FLAGSHIP, tree=None, timeout=600):
         raw["TRAIN"]["EPOCHS"] = 3
         cfg3 = tmp / "three.yaml"
         cfg3.write_text(yaml.safe_dump(raw))
+        # inference: the same model, writing to the temporary directory, with a
+        # threshold that random weights clear, so that the tracker has detections
+        infer_cfg = tmp / "infer.yaml"
+        infer_cfg.write_text(yaml.safe_dump({**raw, "RUNTIME": {**raw["RUNTIME"], "OUTPUT_DIR": str(tmp / "outputs")},
+                                             "EVAL": {**raw["EVAL"], "CONF_THRESH": INFER_CONF_THRESH}}))
         env = {**os.environ, "PYTHONPATH": str(ROOT)}
         runs = {
             "train --resume": ["vsta_tpu_torch.train", "--config", str(cfg3), "--work_dir", str(work), "--resume"],
             "evaluate --split all": ["vsta_tpu_torch.evaluate", "--config", str(cfg3), "--checkpoint",
                                      str(save_dir / "best"), "--split", "all"],
+            "inference --track --clips 2": ["vsta_tpu_torch.inference", "--config", str(infer_cfg), "--checkpoint",
+                                            str(save_dir / "best"), "--track", "--clips", "2"],
         }
         for label, args in runs.items():
             t = time.perf_counter()
             r = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, timeout=timeout,
                                env=env, cwd=str(ROOT))
-            lines = [x for x in r.stdout.splitlines() if x.startswith(("[resume]", "[done]", "[ckpt]", "[time]"))]
+            lines = [x for x in r.stdout.splitlines() if x.startswith(("[resume]", "[done]", "[ckpt]", "[time]", "Saved"))]
             log(f"[loop] {label}: exit {r.returncode} in {time.perf_counter() - t:.1f}s; " + " | ".join(lines))
             check(r.returncode == 0, f"{label} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
             if label.startswith("train"):
                 check("[resume] from epoch 2" in r.stdout and "[done]" in r.stdout, f"{label}: no resume from epoch 2")
+            elif label.startswith("inference"):
+                inference_outputs(tmp / "outputs", tree["n_frames"])
             else:
                 block = json.loads(r.stdout[r.stdout.index("{"):])
                 log(f"[loop] evaluate: {json.dumps(block)}")
@@ -1925,6 +1979,28 @@ def loop_phase(dev, cfg_path=FLAGSHIP, tree=None, timeout=600):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
+
+
+INFER_CONF_THRESH = 0.05  # the untrained heatmap sits near sigmoid(-2.19) = 0.10
+
+
+def inference_outputs(out_dir, n_frames):
+    """The inference CLI's output with --track --clips 2: a JSON a frame
+    with finite boxes and scores, its clip and its tracks; detections and
+    confirmed tracks in both clips."""
+    files = sorted(Path(out_dir).glob("frame_*.json"))
+    frames = [json.loads(f.read_text()) for f in files]
+    check(len(frames) == n_frames, f"[inference] {len(frames)} frame files for {n_frames} frames")
+    check(all({"frame_idx", "boxes", "scores", "tracks", "clip"} <= set(d) for d in frames),
+          "[inference] a frame file lacks a key")
+    check(all(np.isfinite(np.asarray(d["boxes"] or [0.0])).all() for d in frames), "[inference] non-finite boxes")
+    clips = sorted({d["clip"] for d in frames})
+    n_tracks = sum(len(d["tracks"]) for d in frames)
+    log(f"[inference] {len(frames)} frame files, clips {clips}, {sum(len(d['boxes']) for d in frames)} detections, "
+        f"{n_tracks} confirmed tracks over all frames, track ids {sorted({t['id'] for d in frames for t in d['tracks']})}")
+    check(clips == [0, 1], f"[inference] clips {clips}")
+    check(all(any(d["tracks"] for d in frames if d["clip"] == c) for c in clips),
+          "[inference] a clip has no confirmed track")
 
 
 def deform_training_phase(dev, cfg_path=DEFORM):
@@ -2013,7 +2089,7 @@ def determinism_phase(dev):
     from collections import Counter
 
     from vsta_tpu_torch.config import load_config
-    from vsta_tpu_torch.models.bevnet import residual_upsample
+    from vsta_tpu_torch.ops.resize import resize_bilinear
     from vsta_tpu_torch.training.state import batch_to_device, create_state, gradients, loss_fn
 
     g = torch.Generator(device=dev).manual_seed(12)
@@ -2022,10 +2098,10 @@ def determinism_phase(dev):
     grads = []
     for _ in range(2):
         leaf = res.clone().requires_grad_(True)
-        residual_upsample(leaf, BEV_HW).backward(gout)
+        resize_bilinear(leaf.permute(0, 3, 1, 2), BEV_HW).permute(0, 2, 3, 1).backward(gout)
         grads.append(leaf.grad)
     same = torch.equal(*grads)
-    log(f"[determinism] residual_upsample backward, f32 [16, 30, 90, 128] -> {BEV_HW}, run twice: bit-equal {same}")
+    log(f"[determinism] residual upsample (resize_bilinear) backward, f32 [16, 30, 90, 128] -> {BEV_HW}, run twice: bit-equal {same}")
     check(same, "the residual upsample's backward differs between two runs")
     del res, gout, grads
     for label, path in (("deform", DEFORM), ("concat", FLAGSHIP)):
@@ -2307,6 +2383,205 @@ def baseline_phase(dev, base_dir):
     print(json.dumps({"baseline": str(base_dir), "times": table}))
 
 
+RESNET_CONFIGS = {
+    "sanity": ROOT / "configs" / "wildtrack_sanity.yaml",
+    "resnet50": ROOT / "configs" / "wildtrack_v1_resnet50.yaml",
+    "ms_max": ROOT / "configs" / "wildtrack_ms_max.yaml",
+}
+
+
+def capturing_kernels(store):
+    """The grouped kernels, with rows 4 and 3 keeping the inputs of their
+    first call in ``store``: the shapes a model path gives them."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+
+    def sample(maps, idx, wts):
+        store.setdefault("sample_tiles_grouped", (maps.detach(), idx, wts.detach()))
+        return gc.sample_tiles_grouped(maps, idx, wts)
+
+    def scatter_taps(gout, idx, wts, P, *rest):
+        store.setdefault("scatter_taps_grouped", (gout.detach(), idx, wts.detach(), P))
+        return gc.scatter_taps_grouped(gout, idx, wts, P, *rest)
+
+    return gc.KERNELS._replace(sample=sample, scatter_taps=scatter_taps)
+
+
+def captured_readings(dev, label, store):
+    """Rows 4 and 3 on the inputs a model call gave them: each against its
+    plain version (row 4 bit-equal, row 3 within 1e-5 of max|ref|), then
+    its time, the plain version's, the library's and the bound."""
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+
+    readings = {}
+    if "sample_tiles_grouped" in store:
+        maps, idx, wts = store["sample_tiles_grouped"]
+        out = gc.sample_tiles_grouped(maps, idx, wts)
+        err = hold(f"sample_tiles_grouped {label}", out, gc.sample_tiles_grouped_ref(maps, idx, wts), "exact")
+        readings["sample_tiles_grouped"] = {"path": label, **measure(dev, "sample_tiles_grouped", maps, out, idx, wts, err)}
+        del out
+    if "scatter_taps_grouped" in store:
+        gout, idx, wts, P = store["scatter_taps_grouped"]
+        dm = gc.scatter_taps_grouped(gout, idx, wts, P)
+        err = hold(f"scatter_taps_grouped {label}", dm, gc.scatter_taps_grouped_ref(gout, idx, wts, P), "f32")
+        shape_of = torch.empty((gout.shape[0], P, gout.shape[2]), dtype=gout.dtype, device=dev)
+        readings["scatter_taps_grouped"] = {
+            "path": label, **measure(dev, "scatter_taps_grouped", shape_of, gout, idx, wts, err)}
+        del dm, shape_of
+    store.clear()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def resnet_serving_phase(dev):
+    """The three shipped ResNet configs served at full width with random
+    weights from init_state_dict (wildtrack_sanity f32, wildtrack_v1_resnet50
+    and wildtrack_ms_max bf16), batch 16 and 1: uint8 frames in, detections
+    out; request times and peak memory; one launch of sample_tiles_grouped
+    a request and no other kernel; the heatmaps with the kernel against its
+    plain version; row 4 at the shape a batch-16 request gives it. Returns
+    (launches, readings)."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.serving import build_serving_fn
+
+    counters = all_counters()
+    total = {c.__name__: 0 for c in counters}
+    readings = []
+    for name, path in RESNET_CONFIGS.items():
+        cfg = load_config(str(path))
+        t0 = time.perf_counter()
+        state = init_state_dict(cfg, seed=0)
+        serve = build_serving_fn(cfg, state, device="cuda")
+        model = serve.model
+        log(f"[resnet-serve] {name}: model built, {sum(v.numel() for v in state.values())} weights, "
+            f"{time.perf_counter() - t0:.1f}s, compute dtype {model.dtype}, OUT_INDEX {cfg.model.out_index}, "
+            f"FUSION {cfg.model.fusion}, {cfg.data.views} views")
+        inputs = serve_inputs(cfg)
+        store = {}
+        model.grouped = capturing_kernels(store)
+        try:
+            serve(*inputs)
+        finally:
+            model.grouped = gc.KERNELS
+        readings.append(captured_readings(dev, f"{name} serving B=16", store))
+        reset(counters)
+        _, n16 = timed_requests(cfg, serve, inputs, 16, 2, 5, f"{name} {str(model.dtype).split('.')[-1]}")
+        _, n1 = timed_requests(cfg, serve, inputs, 1, 2, 5, f"{name} {str(model.dtype).split('.')[-1]}")
+        launches = {c.__name__: c.launches for c in counters}
+        log(f"[resnet-serve] {name}: {n16 + n1} requests, launches {json.dumps(launches)}")
+        check(launches == {c.__name__: (n16 + n1 if c.__name__ == "sample_tiles_grouped" else 0) for c in counters},
+              f"{name} serving launches {launches}")
+        total = {k: total[k] + launches[k] for k in total}
+        heatmaps_kernels_vs_plain(serve, inputs, counters, f"resnet-serve {name}")
+        del serve, model, state
+        torch.cuda.empty_cache()
+    return total, readings
+
+
+def resnet_training_phase(dev):
+    """Each shipped ResNet config's train step as the config stands
+    (sanity: batch 1, f32; ResNet-50: batch 2, ACCUM_STEPS 2, bf16; ms_max:
+    batch 4, bf16), then sanity with MODEL.NORM group (one field replaced
+    in memory): sample_tiles_grouped forward and scatter_taps_grouped
+    backward once a call, finite losses, gradients with the kernels
+    against their plain versions, call times and peak memory; one call's
+    gradients twice, bit for bit; rows 4 and 3 at the shapes the call
+    gives them. Returns (launches, readings)."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles
+
+    runs = (("sanity", {}), ("resnet50", {}), ("ms_max", {}), ("sanity", {"norm": "group"}))
+    total, readings = None, []
+    for name, fields in runs:
+        cfg = with_model_fields(load_config(str(RESNET_CONFIGS[name])), **fields)
+        label = f"resnet-train {name}" + (" NORM group" if fields else "")
+        store = {}
+
+        def extra(grads_with, g_kernel, spread, label=label, store=store):
+            log(f"[determinism] {label}: one call's gradients run twice: worst distance {spread:.3e} "
+                f"(bit-equal {spread == 0})")
+            check(spread == 0, f"{label}: two runs of one call's gradients differ")
+            grads_with(warp_tiles, capturing_kernels(store))
+            readings.append(captured_readings(dev, label, store))
+
+        head = "view_proj" if cfg.model.fusion == "concat" else "bev_proj.weight"
+        launches = training_phase(
+            dev, cfg, label, per_call={"sample_tiles_grouped": 1, "scatter_taps_grouped": 1},
+            watched=[head, "detector.stem0.weight", "encoder.backbone.stem_conv.weight"],
+            warm=1, timed=4, profile=name == "resnet50" and not fields, extra=extra,
+            stats=() if cfg.model.norm == "group" else (
+                "encoder.backbone.stem_bn.running_mean", "encoder.backbone.stages.3.1.norms.0.running_var"),
+        )
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+        torch.cuda.empty_cache()
+    return total, readings
+
+
+def torchvision_resnet18(seed):
+    """A ResNet-18 state_dict under torchvision's names (fc included), its
+    weights and BatchNorm statistics random from ``seed``."""
+    from vsta_tpu_torch.models.encoders.resnet import ResNetFeatures
+
+    torch.manual_seed(seed)
+    trunk = ResNetFeatures("resnet18")
+    sd = {"fc.weight": torch.randn(1000, 512), "fc.bias": torch.randn(1000)}
+    for k, t in trunk.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        t = torch.rand_like(t) + 0.5 if k.endswith(("running_var", "weight")) and t.ndim == 1 else t.clone()
+        if k.endswith("running_mean") or (k.endswith("bias") and t.ndim == 1):
+            t = 0.1 * torch.randn_like(t)
+        parts = k.split(".")
+        if parts[0] == "stem_conv":
+            name = "conv1." + parts[1]
+        elif parts[0] == "stem_bn":
+            name = "bn1." + parts[1]
+        else:  # stages.i.j.{convs,norms}.k.<tensor>
+            i, j, kind, n = int(parts[1]), int(parts[2]), parts[3], int(parts[4])
+            block = trunk.stages[i][j]
+            stem = f"layer{i + 1}.{j}"
+            if n < block.n_main:
+                name = f"{stem}.{'conv' if kind == 'convs' else 'bn'}{n + 1}.{parts[5]}"
+            else:
+                name = f"{stem}.downsample.{0 if kind == 'convs' else 1}.{parts[5]}"
+        sd[name] = t
+    return sd
+
+
+def pretrained_phase(dev):
+    """configs/wildtrack_sanity.yaml with MODEL.PRETRAINED true and
+    PRETRAINED_PATH a torchvision-named ResNet-18 state_dict written from a
+    seed to a temporary .pth: create_state loads it on the card, prints the
+    JAX package's line, and the loaded stem_conv weight, a block's conv and
+    a projection norm's running variance equal the file's."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.training.state import create_state
+
+    sd = torchvision_resnet18(seed=5)
+    with tempfile.TemporaryDirectory(prefix="vsta_pretrained_") as tmp:
+        path = Path(tmp) / "resnet18.pth"
+        torch.save(sd, path)
+        cfg = with_model_fields(load_config(str(RESNET_CONFIGS["sanity"])), pretrained=True, pretrained_path=str(path))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = create_state(cfg, seed=0, device="cuda", steps_per_epoch=1)
+    line = out.getvalue().strip()
+    bb = state.model.encoder.backbone
+    pairs = {"conv1.weight": bb.stem_conv.weight, "layer3.1.conv2.weight": bb.stages[2][1].convs[1].weight,
+             "layer4.0.downsample.1.running_var": bb.stages[3][0].norms[2].running_var}
+    same = {k: bool(torch.equal(t.detach().cpu(), sd[k])) and t.is_cuda for k, t in pairs.items()}
+    log(f"[pretrained] {line!r}; on the card and equal to the file's: {json.dumps(same)}")
+    check(line.startswith("[pretrained] loaded 60 param + 40 batch-stat tensors"), f"pretrained load printed {line!r}")
+    check(all(same.values()), f"pretrained weights differ from the file's: {same}")
+    del state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2355,6 +2630,9 @@ def main() -> int:
     for family in SMALL_FAMILIES:
         small_model_phase(dev, family)
     t = time.perf_counter()
+    resnet_serve, serve_readings = resnet_serving_phase(dev)
+    log(f"[resnet-serve] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
     train = flagship_training_phase(dev)
     log(f"[train] phase {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
@@ -2369,6 +2647,12 @@ def main() -> int:
     t = time.perf_counter()
     fusion_train = fusion_training_phase(dev)
     log(f"[fusion-train] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    resnet_train, train_readings = resnet_training_phase(dev)
+    log(f"[resnet-train] phases {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    pretrained_phase(dev)
+    log(f"[pretrained] phase {time.perf_counter() - t:.1f}s")
     for family in ("concat", "deform_attn", "concat per-frame", "attn"):
         small_train_phase(dev, family)
     t = time.perf_counter()
@@ -2377,9 +2661,11 @@ def main() -> int:
     # launches on the model paths, each path counted from 0 over its own
     # run: flagship serving (both warp dispatches), training and the loop, deform
     # serving and training (ATTN_STRIDE 4 and 1), both families with
-    # per-frame cameras, the max and attn fusions. The ablation variants
+    # per-frame cameras, the max and attn fusions, the three ResNet configs
+    # served and trained (and sanity with GroupNorm). The ablation variants
     # are on no model path: their count is the attribution run's.
-    paths = [train, loop, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train]
+    paths = [train, loop, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train,
+             resnet_serve, resnet_train]
     on_paths = {k: sum(path.get(k, 0) for path in paths) for k in train}
     entries += [views_entry, ablation_entry]
     counts = {
@@ -2388,6 +2674,11 @@ def main() -> int:
         **{e["replaces"]: on_paths[e["name"]] for e in entries if e["name"] in on_paths},
         ablation_entry["replaces"]: ablation_entry["launches"],
     }
+    # rows 4 and 3 at the shapes the ResNet paths gave them
+    for reading in serve_readings + train_readings:
+        for entry in entries:
+            if entry["name"] in reading:
+                entry["other_shapes"].append(reading[entry["name"]])
     check(len(entries) == 8 and len(counts) == 8, "the kernels line lists eight kernels")
     for entry in entries:
         entry["launches"] = counts[entry["replaces"]]

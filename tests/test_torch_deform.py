@@ -44,7 +44,7 @@ from vsta_tpu_torch.convert import (
     batch_stats_from_flax, init_state_dict, params_from_flax, state_dict_from_flax,
 )
 from vsta_tpu_torch.models import BEVNet
-from vsta_tpu_torch.models.bevnet import interp_matrix, residual_upsample
+from vsta_tpu_torch.ops.resize import interp_matrix, resize_bilinear
 from vsta_tpu_torch.models.fusion import DeformableFusion, ring_offsets
 from vsta_tpu_torch.ops import grouped_cuda as gc
 from vsta_tpu_torch.training.state import create_state, make_train_step
@@ -149,16 +149,22 @@ def _variables(cfg, seed):
 # -- pieces ---------------------------------------------------------------
 
 
+def _residual_upsample(res, size):
+    """BEVNet's upsample of the f32 NHWC residual, as its forward calls it."""
+    return resize_bilinear(res.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+
+
 @pytest.mark.parametrize("src,dst", [((7, 11), (28, 44)), ((13, 21), (25, 41)), ((30, 90), (120, 360))])
 def test_residual_upsample_matches_jax_image_resize(rng, src, dst):
-    """The port's residual_upsample (two products with fixed matrices) on
-    NHWC against jax.image.resize(bilinear), at an integer factor, at the
+    """The port's residual upsample (resize_bilinear, two products with
+    fixed matrices, on the NHWC residual seen as NCHW) against
+    jax.image.resize(bilinear), at an integer factor, at the
     factor 25/13 of an odd grid strided by 2, and at the flagship's; its
     matrices are JAX's weights bit for bit, and F.interpolate's (the op it
     replaced) within float32 rounding."""
     x = rng.standard_normal((2, *src, 5)).astype(np.float32)
     want = jax.image.resize(jnp.asarray(x), (2, *dst, 5), method="bilinear")
-    got = residual_upsample(torch.from_numpy(x), dst)
+    got = _residual_upsample(torch.from_numpy(x), dst)
     assert got.dtype == torch.float32 and got.shape == (2, *dst, 5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
     for n, m in zip(src, dst):
@@ -177,7 +183,7 @@ def test_residual_upsample_vjp_matches_jax(rng, src, dst):
     _, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, *dst, 5), method="bilinear"), jnp.asarray(x))
     (want,) = vjp(jnp.asarray(g))
     leaf = torch.from_numpy(x).requires_grad_(True)
-    residual_upsample(leaf, dst).backward(torch.from_numpy(g))
+    _residual_upsample(leaf, dst).backward(torch.from_numpy(g))
     np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
@@ -327,18 +333,18 @@ def test_init_state_dict_reproduces_the_sampling_heads_start():
     assert "view_proj" not in got
 
 
-def test_from_config_accepts_deform_and_names_what_is_left():
+def test_from_config_accepts_deform_with_every_backbone_option():
     """The family builds, with static and with per-frame cameras, beside
-    the unfused fusions; what is left to port are the other backbones and
-    the multi-scale OUT_INDEX."""
+    the unfused fusions, and over the options once left to port: a ResNet
+    backbone (with GroupNorm too) and a multi-scale OUT_INDEX."""
     assert BEVNet.from_config(tcfg.from_dict(_raw({}))).fusion == "deform_attn"
     for fusion in ("mean", "attn"):
         assert BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"FUSION": fusion}}))).fusion == fusion
     assert not BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"STATIC_CAMERAS": False}}))).static_cameras
-    with pytest.raises(NotImplementedError, match="Other backbones"):
-        BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"BACKBONE": "resnet18"}})))
-    with pytest.raises(NotImplementedError, match="Multi-scale"):
-        BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"OUT_INDEX": [1, 2]}})))
+    net = BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"BACKBONE": "resnet18", "NORM": "group"}})))
+    assert net.fusion == "deform_attn" and net.encoder.backbone.norm == "group"
+    net = BEVNet.from_config(tcfg.from_dict(_raw({"MODEL": {"OUT_INDEX": [1, 2]}})))
+    assert net.encoder.levels == (1, 2) and net.encoder.proj.in_channels == 24 + 40
 
 
 # -- the train step -------------------------------------------------------

@@ -98,7 +98,7 @@ def test_loop_and_prefetcher_raise_without_a_card(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())  # nothing was written before the raise
 
 
-@pytest.mark.parametrize("cli", ["train", "evaluate"])
+@pytest.mark.parametrize("cli", ["train", "evaluate", "inference"])
 def test_clis_raise_without_a_card(cli, tmp_path):
     """``python -m vsta_tpu_torch.<cli>`` with RUNTIME.DEVICE tpu exits
     non-zero here, where no CUDA device exists."""

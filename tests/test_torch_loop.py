@@ -124,12 +124,16 @@ def model_params_stub(raw):
     return v["params"]
 
 
-@pytest.mark.parametrize("over", [{"NORM": "group"}, {"BACKBONE": "resnet18"}])
-def test_simple_and_b0_only(over):
+@pytest.mark.parametrize("over", [{"NORM": "group", "BACKBONE": "efficientnet_b0"}, {"BACKBONE": "resnet18"}])
+def test_resnets_build_and_group_norm_needs_one(over):
+    """MODEL.NORM group on EfficientNet-B0 raises ValueError, as in the JAX
+    package; a ResNet builds (once it raised NotImplementedError)."""
     cfg = tcfg.from_dict(tiny_raw("unused", MODEL=over))
-    err = ValueError if "NORM" in over else NotImplementedError
-    with pytest.raises(err):
-        BEVNet.from_config(cfg)
+    if "NORM" in over:
+        with pytest.raises(ValueError, match="only supported for resnet"):
+            BEVNet.from_config(cfg)
+        return
+    assert type(BEVNet.from_config(cfg).encoder.backbone).__name__ == "ResNetFeatures"
 
 
 # -- metrics ----------------------------------------------------------------

@@ -134,29 +134,28 @@ def test_state_dict_from_flax_covers_every_port_weight(slice_setup):
 
 
 @pytest.mark.parametrize(
-    "model_key,value,match",
+    "model_key,value",
     [
-        ("FUSION", "mean", "Fusions"),
-        ("WARP_IMPL", "fused", "Fusions"),
-        ("STATIC_CAMERAS", False, "Per-frame cameras"),
-        ("BACKBONE", "resnet18", "Other backbones"),
-        ("OUT_INDEX", [1, 2], "Multi-scale"),
+        ("FUSION", "mean"),
+        ("WARP_IMPL", "fused"),
+        ("STATIC_CAMERAS", False),
+        ("BACKBONE", "resnet18"),
+        ("OUT_INDEX", [1, 2]),
     ],
 )
-def test_unported_options_raise(model_key, value, match):
-    """The options still to port raise, naming their ROADMAP item. The
-    fusions, the other concat warps and per-frame cameras were such
-    options once: their cases now build, load random weights and serve
-    (test_torch_fusions.py and test_torch_perframe.py hold them to the JAX
-    package)."""
+def test_once_unported_options_build_and_serve(model_key, value):
+    """Options that the port once refused, naming their ROADMAP item: the
+    fusions, the other concat warps, per-frame cameras, the ResNets and a
+    multi-scale OUT_INDEX. Each now builds, loads random weights and serves
+    (test_torch_fusions.py, test_torch_perframe.py, test_torch_resnet.py and
+    test_torch_resnet_configs.py hold them to the JAX package)."""
     raw = {**RAW, "MODEL": {**RAW["MODEL"], model_key: value}}
     cfg = tcfg.from_dict(raw)
-    if model_key in ("BACKBONE", "OUT_INDEX"):
-        with pytest.raises(NotImplementedError, match=match):
-            BEVNet.from_config(cfg)
-        return
     serve = build_serving_fn(cfg, init_state_dict(cfg, seed=0), device="cpu")
-    assert getattr(serve.model, {"FUSION": "fusion", "WARP_IMPL": "warp_impl",
-                                 "STATIC_CAMERAS": "static_cameras"}[model_key]) == value
+    enc = serve.model.encoder
+    got = {"FUSION": serve.model.fusion, "WARP_IMPL": serve.model.warp_impl,
+           "STATIC_CAMERAS": serve.model.static_cameras, "BACKBONE": type(enc.backbone).__name__,
+           "OUT_INDEX": list(enc.levels)}[model_key]
+    assert got == ("ResNetFeatures" if model_key == "BACKBONE" else value)
     out = serve(*_inputs(seed=4, uint8=True))
     assert out["heatmap"].shape == (2, 16, 48, 1) and torch.isfinite(out["heatmap"]).all()

@@ -9,6 +9,9 @@ names:
   the ``simple`` backbone's ``Conv_0`` / ``Conv_1`` -> ``conv0`` / ``conv1``;
 * BatchNorm ``scale``/``bias`` from params, ``mean``/``var`` from
   batch_stats; GroupNorm ``scale``/``bias``;
+* a ResNet block's ``Conv_k`` and ``BatchNorm_k`` (or ``GroupNorm_k``
+  under ``MODEL.NORM: group``, with no batch_stats) -> ``convs.k`` and
+  ``norms.k`` of ``stages.i.j`` for ``stage{i}_block{j}``;
 * ``view_proj`` [V, F, C_out] and ``view_proj_bias`` (concat), or
   ``query_proj`` and ``query_proj_bias`` (deform_attn), stay raw tensors;
 * the deformable fusion's ``Dense`` kernels [in, out] -> ``Linear``
@@ -39,6 +42,7 @@ import torch
 from .config import Config
 from .models.bevnet import BEVNet
 from .models.encoders.efficientnet import B0_STAGES
+from .models.encoders.resnet import ResNetFeatures
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -83,6 +87,24 @@ def _mbconv(p: Optional[Mapping], s: Optional[Mapping], out: StateDict, name: st
         _conv(se["Conv_1"], out, f"{name}.se.expand")
 
 
+def _resnet(p: Optional[Mapping], s: Optional[Mapping], out: StateDict, name: str) -> None:
+    # a block's Conv_k and its BatchNorm_k (or GroupNorm_k) -> convs.k, norms.k
+    if p is not None:
+        _conv(p["stem_conv"], out, f"{name}.stem_conv")
+    _bn(p and p["stem_bn"], s and s["stem_bn"], out, f"{name}.stem_bn")
+    for key in (p if p is not None else s):
+        if not key.startswith("stage"):
+            continue
+        i, j = key[len("stage"):].split("_block")
+        prefix = f"{name}.stages.{i}.{j}"
+        for sub in (p if p is not None else s)[key]:
+            kind, k = sub.rsplit("_", 1)
+            if kind == "Conv":
+                _conv(p[key][sub], out, f"{prefix}.convs.{k}")
+            else:  # BatchNorm_k or GroupNorm_k
+                _bn(p and p[key][sub], s and s[key][sub], out, f"{prefix}.norms.{k}")
+
+
 _TOP_LEVEL = {
     "encoder", "detector", "view_proj", "view_proj_bias", "query_proj", "query_proj_bias",
     "deform_fusion", "AttentionFusion_0", "bev_proj",
@@ -94,10 +116,13 @@ def _from_flax(params: Optional[Mapping], stats: Optional[Mapping]) -> StateDict
     out: StateDict = {}
     bb = None if params is None else params["encoder"]["backbone"]
     bb_s = None if not stats else stats["encoder"]["backbone"]
+    tree = bb if bb is not None else bb_s
     if bb is not None and "Conv_0" in bb:  # the simple backbone: two convs, no BatchNorm
         _conv(bb["Conv_0"], out, "encoder.backbone.conv0")
         _conv(bb["Conv_1"], out, "encoder.backbone.conv1")
-    elif bb is not None or bb_s is not None:
+    elif tree is not None and "stage4_block0" not in tree:  # a ResNet: four stages
+        _resnet(bb, bb_s, out, "encoder.backbone")
+    elif tree is not None:
         if bb is not None:
             _conv(bb["stem_conv"], out, "encoder.backbone.stem_conv")
         _bn(bb and bb["stem_bn"], bb_s and bb_s["stem_bn"], out, "encoder.backbone.stem_bn")
@@ -156,7 +181,9 @@ def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:
     """Random weights for ``BEVNet.from_config(cfg)`` from ``seed``.
 
     Kernels are LeCun-normal truncated at 2 sigma (Flax's default init),
-    biases 0, norm scales 1, BatchNorm statistics (0, 1), with the head's
+    biases 0, norm scales 1 (0 for the norm that closes each ResNet
+    block's main branch, as Flax's ``scale_init=zeros``), BatchNorm
+    statistics (0, 1), with the head's
     CenterNet constants and, for ``deform_attn``, the sampling heads' zero
     kernels and ring bias. ``bev_proj`` and the attention fusion's layers
     start as Flax's ``Conv`` and ``Dense`` do (fan-in the input channels).
@@ -180,6 +207,9 @@ def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:
             lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
             u = lo + (1.0 - 2.0 * lo) * torch.rand(p.shape, generator=g, dtype=torch.float64)
             p.copy_((torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0) * std).float())
+        if isinstance(model.encoder.backbone, ResNetFeatures):  # Flax's scale_init=zeros
+            for block in model.encoder.backbone.blocks():
+                block.last_norm.weight.zero_()
         model.detector.init_centernet_()
         if model.fusion == "deform_attn":
             model.deform_fusion.init_sampling_()

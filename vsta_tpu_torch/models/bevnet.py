@@ -23,7 +23,7 @@ per-frame cameras (every frame warps under its own ``K``, ``Rt``):
   grouped sampler, in serving and training) is refined by
   :class:`~vsta_tpu_torch.models.fusion.DeformableFusion` on a query grid
   strided by ``ATTN_STRIDE``, whose residual is upsampled bilinearly in
-  f32 (:func:`residual_upsample`) and added.
+  f32 (:func:`~vsta_tpu_torch.ops.resize.resize_bilinear`) and added.
 * The unfused fusions, on the per-view BEV maps of
   :func:`~vsta_tpu_torch.ops.grouped_cuda.warp_views` (the encoder's
   projection applied): ``concat`` with ``WARP_IMPL: gather`` (the per-view
@@ -40,7 +40,7 @@ gradient at the encoder's output.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 from torch import nn
@@ -49,6 +49,7 @@ from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..geometry import bev_sample_coords_with_depth, ground_grid
 from ..ops.grouped_cuda import KERNELS, warp_views
+from ..ops.resize import resize_bilinear
 from ..ops.warp_cuda import FusedWarpProj, fused_warp_proj, fused_warp_proj_cuda, warp_tiles
 from ..ops.warp_views_cuda import warp_views_sum
 from .encoders.encoder import ViewEncoder
@@ -79,40 +80,6 @@ def positional_encoding(
     )
 
 
-_INTERP: Dict[Tuple[int, int, str], torch.Tensor] = {}
-
-
-def interp_matrix(src: int, dst: int, device=None) -> torch.Tensor:
-    """[dst, src] float32 weights of half-pixel bilinear resampling along
-    one axis, as ``jax.image.resize(..., "bilinear")`` computes them for an
-    upsampling (its ``compute_weight_mat``, in float32: a triangle kernel
-    at ``(i + 0.5) * src / dst - 0.5``, each row divided by its sum, which
-    clamps at the edges). Built once per sizes and device, on the CPU."""
-    key = (src, dst, str(torch.device(device) if device is not None else "cpu"))
-    if key not in _INTERP:
-        f32 = torch.float32
-        inv_scale = torch.tensor(1.0 / (dst / src), dtype=f32)  # a double rounded once, as in JAX
-        sample = (torch.arange(dst, dtype=f32) + 0.5) * inv_scale - 0.5
-        w = (1.0 - (sample[:, None] - torch.arange(src, dtype=f32)[None, :]).abs()).clamp(min=0.0)
-        total = w.sum(dim=1, keepdim=True)
-        w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps, w / torch.where(total != 0, total, 1.0), 0.0)
-        inside = (sample >= -0.5) & (sample <= src - 0.5)
-        _INTERP[key] = torch.where(inside[:, None], w, 0.0).to(device)
-    return _INTERP[key]
-
-
-def residual_upsample(res: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of [B, Hs, Ws, C] float32 to [B, Hb, Wb, C], as
-    ``jax.image.resize(res, (B, Hb, Wb, C), "bilinear")`` upsamples: two
-    products with the fixed matrices of :func:`interp_matrix`, along W and
-    then H. Its backward is two more products: no atomics, so two runs on
-    the card give the same bits."""
-    Hb, Wb = size
-    rh = interp_matrix(res.shape[1], Hb, res.device)
-    rw = interp_matrix(res.shape[2], Wb, res.device)
-    return torch.einsum("hi,biwc->bhwc", rh, torch.einsum("wj,bijc->biwc", rw, res))
-
-
 class BEVNet(nn.Module):
     """Construct with :meth:`from_config`; ``forward(images, K, Rt)``."""
 
@@ -123,7 +90,7 @@ class BEVNet(nn.Module):
         bev_bounds: Tuple[float, float, float, float],
         backbone: str = "efficientnet_b0",
         feat_dim: int = 1280,
-        out_index: int = 2,
+        out_index: Union[int, Tuple[int, ...]] = 2,
         bev_proj_ch: int = 128,
         default_box_wh: Tuple[float, float] = (0.6, 0.6),
         head_mid1: int = 512,
@@ -213,10 +180,14 @@ class BEVNet(nn.Module):
             self.encoder.backbone.train(False)
         return self
 
-    def forward(self, images: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(
+        self, images: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor, return_per_view: bool = False
+    ) -> Dict[str, torch.Tensor]:
         """images [B, V, H, W, 3] uint8 or float; K [B, V, 3, 3]; Rt
         [B, V, 4, 4] world->camera (with static cameras frame 0's calibration
-        serves the batch). Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32."""
+        serves the batch). Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32;
+        with ``return_per_view`` the unfused fusions add every view's BEV map,
+        'bev_per_view' [B, V, Hb, Wb, C], as the JAX package does."""
         B, V, H, W, _ = images.shape
         if V != self.views:
             raise ValueError(f"model built for {self.views} views, got {V}")
@@ -240,15 +211,19 @@ class BEVNet(nn.Module):
         pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
         pos = pos[None].expand(B, Hb, Wb, POS_CH)
 
+        per_view = None
         if self.fusion == "deform_attn":
             bev_main = self._deform(feats, coords, depth_w, pos)
         elif self.fold_proj:
             bev_main = self._concat(feats, enc_pk, enc_pb, coords)
         else:
-            bev_main = self.fuse_views(self.per_view(feats, coords))
+            per_view = self.per_view(feats, coords)
+            bev_main = self.fuse_views(per_view)
         bev_feat = torch.cat([bev_main, pos.to(bev_main.dtype)], dim=-1)
         out = self.detector(bev_feat)
         out["bev_feat"] = bev_feat.float()
+        if return_per_view and per_view is not None:
+            out["bev_per_view"] = per_view
         return out
 
     def _deform(self, feats, coords, depth_w, pos) -> torch.Tensor:
@@ -283,7 +258,7 @@ class BEVNet(nn.Module):
             coords_b, depth_b, q = coords_b[:, :, ::s, ::s], depth_b[:, :, ::s, ::s], q_in[:, ::s, ::s]
         res = self.deform_fusion(feats, coords_b, q, depth_b, grouped=self.grouped)
         if s > 1:
-            res = residual_upsample(res.float(), (Hb, Wb)).to(q_in.dtype)
+            res = resize_bilinear(res.float().permute(0, 3, 1, 2), (Hb, Wb)).permute(0, 2, 3, 1).to(q_in.dtype)
         return res
 
     def _concat(self, feats, enc_pk, enc_pb, coords) -> torch.Tensor:

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .norm import BatchNorm
+
 # (expand, out_ch, repeats, strides, kernel) per stage
 B0_STAGES: Sequence[Tuple[int, int, int, int, int]] = (
     (1, 16, 1, 1, 3),
@@ -31,7 +33,6 @@ B0_STAGES: Sequence[Tuple[int, int, int, int, int]] = (
     (6, 320, 1, 1, 3),
 )
 BN_EPS = 1e-3
-BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 
 
 def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -42,37 +43,6 @@ def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
         total = max((-(-n // s) - 1) * s + k - n, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads) if any(pads) else x
-
-
-class BatchNorm(nn.BatchNorm2d):
-    """Flax's BatchNorm: f32 statistics, the input's dtype out.
-
-    In eval mode it normalises with the running statistics. In training
-    mode it normalises with the batch's mean and *biased* variance,
-    ``max(E[x^2] - mean^2, 0)`` in f32 as flax's ``_compute_stats``, and
-    moves the running statistics by ``0.9 * running + 0.1 * batch``.
-    (``F.batch_norm(training=True)`` would store the unbiased variance.)
-    """
-
-    def __init__(self, ch: int):
-        super().__init__(ch, eps=BN_EPS)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(
-                x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-                False, 0.0, self.eps,
-            ).to(x.dtype)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = BN_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
 
 
 def conv(x: torch.Tensor, c: nn.Conv2d, stride: int = 1) -> torch.Tensor:
@@ -102,14 +72,14 @@ class MBConv(nn.Module):
         self.residual = stride == 1 and in_ch == out_ch
         if expand != 1:
             self.expand_conv = nn.Conv2d(in_ch, mid, 1, bias=False)
-            self.expand_bn = BatchNorm(mid)
+            self.expand_bn = BatchNorm(mid, BN_EPS)
         else:
             self.expand_conv = None
         self.dw_conv = nn.Conv2d(mid, mid, kernel, stride, groups=mid, bias=False)
-        self.dw_bn = BatchNorm(mid)
+        self.dw_bn = BatchNorm(mid, BN_EPS)
         self.se = SqueezeExcite(mid, max(1, int(in_ch * 0.25)))
         self.project_conv = nn.Conv2d(mid, out_ch, 1, bias=False)
-        self.project_bn = BatchNorm(out_ch)
+        self.project_bn = BatchNorm(out_ch, BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x
@@ -134,7 +104,7 @@ class EfficientNetFeatures(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.stem_conv = nn.Conv2d(3, 32, 3, 2, bias=False)
-        self.stem_bn = BatchNorm(32)
+        self.stem_bn = BatchNorm(32, BN_EPS)
         self.stages = nn.ModuleList()
         in_ch = 32
         for expand, out_ch, repeats, strides, kernel in B0_STAGES:

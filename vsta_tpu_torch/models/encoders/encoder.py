@@ -1,28 +1,59 @@
 """Per-view encoder: one shared backbone over all B*V images + 1x1 proj.
 
 images [B, V, H, W, 3] (NHWC, as the JAX package) -> [B, V, Hf, Wf, F].
-The backbone is EfficientNet-B0 or ``simple`` (two stride-2 convolutions
-of ``FEAT_DIM`` channels, the reference's fallback); the ResNets raise.
-``norm`` is MODEL.NORM: both take ``'batch'`` only, and any other value
-raises ``ValueError`` as the JAX package does. With
-``fold_proj`` the 1x1 projection is not applied: the encoder returns
-the raw pyramid map with the projection's kernel [C_raw, F] and bias [F],
+:func:`build_backbone` takes every name the JAX package does: the ResNets
+(18/34/50/101), EfficientNet-B0 and ``simple`` (two stride-2 convolutions
+of ``FEAT_DIM`` channels, the reference's fallback). ``norm`` is
+MODEL.NORM: ``'group'`` is for the ResNets only, and on any other backbone
+it raises ``ValueError`` as the JAX package does.
+
+``out_index`` picks one pyramid level, or a tuple of levels: then the
+coarser maps are resized bilinearly to the finest selected one
+(:func:`~vsta_tpu_torch.ops.resize.resize_bilinear`, as
+``jax.image.resize``) and the channels concatenated before the 1x1
+projection. With ``fold_proj`` the projection is not applied: the encoder
+returns the raw map with the projection's kernel [C_raw, F] and bias [F],
 for the caller to fold into the next linear op. Internally the maps are
 NCHW tensors in channels-last memory, so the NHWC views are free.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from ...ops.resize import resize_bilinear
 from .efficientnet import EfficientNetFeatures, conv
+from .resnet import RESNET_SPECS, ResNetFeatures, resnet_channels
 from .simple import SimpleConvFeatures
 
 # pyramid channels of EfficientNet-B0 (timm feature_info order)
 B0_CHANNELS = (16, 24, 40, 112, 320)
+
+
+def build_backbone(
+    name: str, dtype: torch.dtype = torch.float32, feat_dim: int = 32, norm: str = "batch"
+) -> nn.Module:
+    if name in RESNET_SPECS:
+        return ResNetFeatures(name, dtype, norm)
+    if norm != "batch":
+        raise ValueError(
+            f"MODEL.NORM={norm!r} is only supported for resnet backbones "
+            f"(got backbone={name!r})"
+        )
+    if name.startswith("efficientnet"):
+        return EfficientNetFeatures(dtype)
+    # the reference's fallback stack is sized by FEAT_DIM directly
+    return SimpleConvFeatures(feat_dim, dtype)
+
+
+def pyramid_channels(name: str, feat_dim: int) -> Tuple[int, ...]:
+    """Channels of the five levels of :func:`build_backbone`'s pyramid."""
+    if name in RESNET_SPECS:
+        return resnet_channels(name)
+    return B0_CHANNELS if name.startswith("efficientnet") else (feat_dim,) * 5
 
 
 class ViewEncoder(nn.Module):
@@ -30,42 +61,34 @@ class ViewEncoder(nn.Module):
         self,
         backbone: str = "efficientnet_b0",
         feat_dim: int = 1280,
-        out_index: int = 2,
+        out_index: Union[int, Sequence[int]] = 2,
         dtype: torch.dtype = torch.float32,
         fold_proj: bool = False,
         norm: str = "batch",
     ):
         super().__init__()
-        if backbone not in ("efficientnet_b0", "simple"):
-            raise NotImplementedError(
-                f"backbone {backbone!r}: the port has efficientnet_b0 and simple; the "
-                "others are ROADMAP Queue 1 item 2, 'Other backbones'"
-            )
-        if norm != "batch":  # as the reference's build_backbone: only ResNets take another norm
-            raise ValueError(
-                f"MODEL.NORM={norm!r} is only supported for resnet backbones "
-                f"(got backbone={backbone!r})"
-            )
-        if not isinstance(out_index, int):
-            raise NotImplementedError(
-                "multi-scale OUT_INDEX tuples are ROADMAP Queue 1 item 2, 'Multi-scale out_index'"
-            )
-        self.out_index = out_index
+        self.levels = tuple(out_index) if isinstance(out_index, (tuple, list)) else (out_index,)
         self.fold_proj = fold_proj
-        if backbone == "simple":  # sized by FEAT_DIM, as the reference's fallback stack
-            self.backbone = SimpleConvFeatures(feat_dim, dtype)
-            raw_channels = feat_dim
-        else:
-            self.backbone = EfficientNetFeatures(dtype)
-            raw_channels = B0_CHANNELS[out_index]
-        self.proj = nn.Conv2d(raw_channels, feat_dim, 1)
+        self.backbone = build_backbone(backbone, dtype, feat_dim, norm)
+        channels = pyramid_channels(backbone, feat_dim)
+        self.proj = nn.Conv2d(sum(channels[i] for i in self.levels), feat_dim, 1)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, 3, H, W] -> the selected level, or the selected levels at
+        the finest one's size, channels concatenated (NCHW)."""
+        pyramid = self.backbone(x, max(self.levels) + 1)
+        feats = [pyramid[i] for i in self.levels]
+        if len(feats) == 1:
+            return feats[0]
+        size = (max(f.shape[2] for f in feats), max(f.shape[3] for f in feats))
+        return torch.cat([resize_bilinear(f, size) for f in feats], dim=1)
 
     def forward(
         self, images: torch.Tensor
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         B, V, H, W, C = images.shape
         x = images.reshape(B * V, H, W, C).permute(0, 3, 1, 2)
-        feat = self.backbone(x, self.out_index + 1)[self.out_index]
+        feat = self.features(x)
         if self.fold_proj:
             kernel = self.proj.weight[:, :, 0, 0].t()
             nhwc = feat.permute(0, 2, 3, 1)

@@ -25,6 +25,7 @@ import torch
 from ..config import Config
 from ..convert import init_state_dict
 from ..models.bevnet import BEVNet
+from ..models.encoders.pretrained import load_pretrained_backbone
 from ..ops.decode import decode_detections
 from ..ops.losses import detection_loss
 from ..ops.splat import build_targets
@@ -58,10 +59,21 @@ def create_state(
     """The model of ``cfg`` on ``device`` with ``state_dict``'s weights
     (random ones from ``seed`` when None) and a fresh optimizer. Runs on
     the CUDA device unless the caller asks for ``device="cpu"``; without a
-    CUDA device it raises."""
+    CUDA device it raises.
+
+    With random weights, ``MODEL.PRETRAINED`` and ``PRETRAINED_PATH``
+    load a torch ResNet ``.pth`` into the backbone. That load is tolerant,
+    as the JAX package's: on any failure it prints ``[pretrained] load
+    failed (...); training from scratch`` and goes on."""
     dev = resolve_device(device)
     model = BEVNet.from_config(cfg)
     model.load_state_dict(init_state_dict(cfg, seed) if state_dict is None else state_dict)
+    m = cfg.model
+    if state_dict is None and m.pretrained and m.pretrained_path:
+        try:
+            load_pretrained_backbone(model.encoder.backbone, m.pretrained_path, m.backbone)
+        except Exception as e:  # tolerant, like the reference
+            print(f"[pretrained] load failed ({e}); training from scratch")
     model.to(dev)
     tx = build_optimizer(cfg, steps_per_epoch)
     return TrainState(model=model, tx=tx, opt_state=tx.init(model))
@@ -94,9 +106,17 @@ def loss_fn(cfg: Config, model: BEVNet, batch: Mapping[str, torch.Tensor]) -> Me
 def gradients(model: BEVNet, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
     """d loss / d parameter for every parameter, zero where the loss does
     not reach it (a frozen backbone, the stages past OUT_INDEX), as JAX's
-    gradient tree has them."""
+    gradient tree has them. cuDNN is held to deterministic algorithms for
+    the backward, then set back: for float32 convolutions its heuristics
+    pick backward algorithms that add with atomics, and two runs of one
+    step would differ in the last bits."""
     names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        torch.backends.cudnn.deterministic = before
     return {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
 
 
