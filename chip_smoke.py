@@ -119,7 +119,30 @@ Phases, each of which raises on failure (exit code != 0):
    evaluate, ``python -m vsta_tpu_torch.inference --track --clips 2`` on the
    loop's tree and checkpoint, with EVAL.CONF_THRESH 0.05, which the
    untrained heatmap clears (a JSON a frame, with its clip, and confirmed
-   tracks in both clips).
+   tracks in both clips); then ``python -m vsta_tpu_torch.export`` of that
+   checkpoint at batch 2 and ``python -m vsta_tpu_torch.serve --track
+   --clips 2`` on the tree, synchronous and with ``--overlap``, the two
+   runs' frame JSONs identical;
+13. export (after phase 11): every shipped config as it stands, and the
+   flagship with per-frame cameras, exported at batch 16 and 1 with random
+   weights and loaded on the card, each as one CUDA graph captured after a
+   request under torch.cuda.set_sync_debug_mode("error"): the replayed
+   boxes, scores, valid and heatmap equal to eager serving bit for bit,
+   launches counted at the capture (a replay passes no Python wrapper),
+   eager against replay time a request (median and p90 of 20), the memory
+   reserved at the peak of an eager request and of a replay, read the same
+   way (rows 1, 4 and 7 at these artifacts' shapes are held to their plain
+   versions by the serving phases, which serve the same configs at batch
+   16 and 1); the decode alone, eager against a CUDA graph of it; then int8: torch._int_mm at the flagship head's three stem products
+   (batch 16 x 120 x 360) equal to an exact f64 product on the card and to
+   the CPU's _int_mm on every row, timed against a bf16 product of the
+   same shape; the flagship with an int8 head, wildtrack_v1_resnet50 with
+   an int8 encoder and head, wildtrack_ms_max with an int8 encoder
+   (calibrated on 2 batches of 4 frames), each exported, replayed
+   bit-equal to eager, timed, its heatmap within 0.05 of the float
+   artifact's (the JAX package's PTQ bound), every int8 site of a batch-1
+   request equal to the CPU's conv_int8 on the same int8 operands, and the
+   int8 head and encoder against the float ones (CUDA events).
 
 Prints the kernels JSON line (eight kernels), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -1974,6 +1997,7 @@ def loop_phase(dev, cfg_path=FLAGSHIP, tree=None, timeout=600):
                 block = json.loads(r.stdout[r.stdout.index("{"):])
                 log(f"[loop] evaluate: {json.dumps(block)}")
                 check(block["n_frames"] == float(tree["n_frames"]), f"evaluate scored {block['n_frames']} frames")
+        serve_cli(tmp, infer_cfg, save_dir / "best", env, tree["n_frames"], timeout)
         copy_timing(dev)
         resume_check(dev, cfg, save_dir)
     finally:
@@ -1982,6 +2006,36 @@ def loop_phase(dev, cfg_path=FLAGSHIP, tree=None, timeout=600):
 
 
 INFER_CONF_THRESH = 0.05  # the untrained heatmap sits near sigmoid(-2.19) = 0.10
+
+
+def serve_cli(tmp, cfg_path, ckpt, env, n_frames, timeout):
+    """``python -m vsta_tpu_torch.export`` of the loop's checkpoint at batch
+    2, then ``python -m vsta_tpu_torch.serve --track --clips 2`` on the
+    loop's tree, synchronous and with ``--overlap``: the two runs' frame
+    JSONs must be identical."""
+    artifact = Path(tmp) / "loop_b2.pt"
+    runs = {"export --batch 2": ["vsta_tpu_torch.export", "--config", str(cfg_path), "--checkpoint", str(ckpt),
+                                 "--out", str(artifact), "--batch", "2"]}
+    for mode in ("sync", "overlap"):
+        runs[f"serve --track --clips 2 ({mode})"] = [
+            "vsta_tpu_torch.serve", "--artifact", str(artifact), "--track", "--clips", "2", "--out",
+            str(Path(tmp) / f"served_{mode}")] + (["--overlap"] if mode == "overlap" else [])
+    for label, args in runs.items():
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, timeout=timeout,
+                           env=env, cwd=str(ROOT))
+        lines = [x for x in r.stdout.splitlines() if x.startswith(("[ckpt]", "[export]", "[serve]", "Saved"))]
+        log(f"[loop] {label}: exit {r.returncode} in {time.perf_counter() - t:.1f}s; " + " | ".join(lines))
+        check(r.returncode == 0, f"{label} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    outs = {}
+    for mode in ("sync", "overlap"):
+        files = sorted((Path(tmp) / f"served_{mode}").glob("frame_*.json"))
+        outs[mode] = {f.name: json.loads(f.read_text()) for f in files}
+    n_tracks = sum(len(d["tracks"]) for d in outs["sync"].values())
+    same = outs["sync"] == outs["overlap"]
+    log(f"[serve-cli] {len(outs['sync'])} frame JSONs a run, clips {sorted({d['clip'] for d in outs['sync'].values()})}, "
+        f"{n_tracks} confirmed tracks; --overlap identical to the synchronous run: {same}")
+    check(len(outs["sync"]) == n_frames and same, "[serve-cli] --overlap output differs from the synchronous run")
 
 
 def inference_outputs(out_dir, n_frames):
@@ -2582,6 +2636,373 @@ def pretrained_phase(dev):
     torch.cuda.empty_cache()
 
 
+EXPORT_CONFIGS = {
+    "flagship": (FLAGSHIP, {}),
+    "flagship per-frame": (FLAGSHIP, {"static_cameras": False}),
+    "deform": (DEFORM, {}),
+    **{name: (path, {}) for name, path in RESNET_CONFIGS.items()},
+}
+# the kernels a request of each artifact launches, and how often
+EXPORT_LAUNCHES = {
+    "flagship": {"warp_tiles": 1},
+    "flagship per-frame": {"warp_views_sum": 1},
+    "deform": {"sample_tiles_grouped": 2},
+    **{name: {"sample_tiles_grouped": 1} for name in RESNET_CONFIGS},
+}
+INT8_CONFIGS = {  # name: (head, encoder)
+    "flagship": (True, False),
+    "resnet50": (True, True),
+    "ms_max": (False, True),
+}
+EXPORT_BATCHES = (16, 1)
+TIMED_REQUESTS = 20
+# an int8 artifact's heatmap against its float artifact's, max |diff|: the
+# JAX package's PTQ bound (tests/test_quant.py); the card read 0.0055 to
+# 0.016 on the three int8 artifacts (NVIDIA H100 80GB HBM3, 700 W)
+INT8_DRIFT_LIMIT = 0.05
+
+
+def request_ms(fn, args, n=TIMED_REQUESTS, warm=2):
+    """Host clock around ``n`` synchronised requests: (median, p90) ms."""
+    for _ in range(warm):
+        fn(*args)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(lat)), float(np.percentile(lat, 90))
+
+
+def request_reserved_gib(fn, args, base):
+    """Memory reserved at the peak of one request, over ``base`` (what was
+    reserved before the model was loaded; the frames already on the card),
+    the allocator's cache emptied first: the same reading for an eager
+    request and a replay, so both count whole segments, the weights and
+    what the request keeps (a graph's private pool stays reserved)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_reserved() - base) / 2**30
+
+
+def export_config(name):
+    """The shipped config of ``name`` as it stands (one field replaced in
+    memory for the per-frame flagship), its random weights and its batch-16
+    frames and cameras."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+
+    path, fields = EXPORT_CONFIGS[name]
+    cfg = with_model_fields(load_config(str(path)), **fields)
+    state = init_state_dict(cfg, seed=0)
+    if cfg.model.fusion == "deform_attn":
+        state = wake_sampling_heads(state)
+    inputs = serve_inputs_perframe(cfg) if not cfg.model.static_cameras else serve_inputs(cfg)
+    return cfg, state, inputs
+
+
+def eager_reference(cfg, state, inputs, per_request, quant):
+    """``build_serving_fn``'s eager function for ``cfg`` (int8 trees in
+    ``quant``) at each batch size: the outputs an artifact's replay is held
+    to, the time a request (median and p90 of 20) and the memory reserved
+    at a request's peak. Returns {B: (args on the card, outputs, reading)}."""
+    from vsta_tpu_torch.serving import build_serving_fn
+
+    counters = all_counters()
+    full = tuple(torch.as_tensor(a, device="cuda") for a in inputs)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    fn = build_serving_fn(cfg, state, device="cuda", **quant)
+    weights = sum(t.numel() * t.element_size() for t in (*fn.model.parameters(), *fn.model.buffers()))
+    readings = {}
+    for B in EXPORT_BATCHES:
+        args = tuple(a[:B] for a in full)
+        reset(counters)
+        ms = request_ms(fn, args)
+        check(sum(c.launches for c in counters) > 0 or not per_request, "eager requests launched no kernel")
+        readings[B] = {"eager_ms_median": round(ms[0], 3), "eager_ms_p90": round(ms[1], 3),
+                       "eager_reserved_gib": round(request_reserved_gib(fn, args, base), 3),
+                       "weights_gib": round(weights / 2**30, 3)}
+    out = {}
+    for B in EXPORT_BATCHES:  # the reference outputs, kept once every reading is taken
+        args = tuple(a[:B] for a in full)
+        outputs = {k: v for k, v in fn(*args).items() if k in ("boxes", "scores", "valid", "heatmap")}
+        out[B] = (args, outputs, readings[B])
+    del fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def replayed_artifact(tmp, label, cfg, state, B, per_request, eager, quant):
+    """Export ``state`` at batch B (int8 trees in ``quant``), load it on the
+    card (one CUDA graph captured, launches counted from 0 around the
+    load), hold the replayed outputs equal to ``eager``'s (args, outputs,
+    reading) bit for bit, time the replay and read the memory reserved at
+    a replay's peak as :func:`eager_reference` reads an eager request's.
+    Returns (launches, reading, replayed heatmap on the CPU)."""
+    from vsta_tpu_torch.export import WARMUP_REQUESTS, export_serving, load_serving, save_exported
+
+    args, want_out, eager_reading = eager
+    path = Path(tmp) / f"{label.replace(' ', '_')}_b{B}.pt"
+    save_exported(export_serving(cfg, state, batch_size=B, **quant), path)
+    counters = all_counters()
+    reset(counters)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    t = time.perf_counter()
+    serve = load_serving(path, device="cuda")
+    load_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    eager_requests = WARMUP_REQUESTS + 2  # warm-up, the sync check, the captured one
+    want = {c.__name__: per_request.get(c.__name__, 0) * eager_requests for c in counters}
+    check(launches == want, f"[export] {label} B={B}: launches at load {launches} != {want}")
+    replayed = serve(*args)
+    check_served(cfg, replayed, B)
+    for k, v in want_out.items():
+        check(torch.equal(replayed[k], v),
+              f"[export] {label} B={B}: replayed {k} differs from eager serving "
+              f"(max {float((replayed[k].float() - v.float()).abs().max()):.3e})")
+    reset(counters)
+    replay_ms = request_ms(serve, args)
+    check(all(c.launches == 0 for c in counters), "a replay went through a Python kernel wrapper")
+    reserved = request_reserved_gib(serve, args, base)
+    reading = {
+        "config": label, "B": B, "load_s": round(load_s, 2), "int8": sorted(quant),
+        **eager_reading, "replay_ms_median": round(replay_ms[0], 3), "replay_ms_p90": round(replay_ms[1], 3),
+        "speedup_median": round(eager_reading["eager_ms_median"] / replay_ms[0], 3),
+        "replay_reserved_gib": round(reserved, 3),
+        "bit_equal": True, "valid_dets_per_frame": round(float(replayed["valid"].float().sum(1).mean()), 2),
+    }
+    log(f"[export] {label} B={B}: " + json.dumps(reading))
+    heatmap = replayed["heatmap"].cpu()
+    del serve, replayed
+    torch.cuda.empty_cache()
+    return launches, reading, heatmap
+
+
+def decode_replay(dev, cfg):
+    """The decode alone (3x3 peak pool, sort, the 128-step greedy NMS loop)
+    on the flagship's heatmap shape, eager against one captured CUDA graph
+    of it: host clock a synchronised call, median and p90 of 20, batch 16
+    and 1; the replay's outputs equal to eager's."""
+    from vsta_tpu_torch.ops.decode import decode_detections
+
+    (Hb, Wb), e = cfg.model.bev_size, cfg.eval
+    kw = dict(bounds=cfg.model.bev_bounds, conf_thresh=e.conf_thresh, nms_dist_m=e.nms_dist_m, max_dets=e.max_dets)
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for B in EXPORT_BATCHES:
+        args = (torch.rand((B, Hb, Wb, 1), device=dev, generator=g),
+                torch.rand((B, Hb, Wb, 2), device=dev, generator=g),
+                torch.rand((B, Hb, Wb, 2), device=dev, generator=g) * 3)
+        fn = lambda *a: decode_detections(*a, **kw)  # noqa: E731
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = fn(*args)
+        graph.replay()
+        want = fn(*args)
+        check(all(torch.equal(static[k], want[k]) for k in want), f"[decode] replay differs from eager at B={B}")
+        eager = request_ms(fn, args)
+        replay = request_ms(lambda *a: graph.replay(), args)
+        out[f"B={B}"] = {"eager_ms_median": round(eager[0], 3), "eager_ms_p90": round(eager[1], 3),
+                         "replay_ms_median": round(replay[0], 3), "replay_ms_p90": round(replay[1], 3)}
+        del graph, static
+    log("[decode] alone, eager against one CUDA graph (host clock, synchronised): " + json.dumps(out))
+    return out
+
+
+def int_mm_phase(dev, B=16, hw=(120, 360)):
+    """torch._int_mm at the flagship head's three stem products (130 -> 512,
+    512 -> 128 dilated 2, 128 -> 128; batch 16 x 120 x 360): the card's
+    int32 equal to an exact f64 product on the card and to the CPU's
+    _int_mm on the same int8 tensors, every row; its time against a bf16
+    product of the same shape, and the bound."""
+    from vsta_tpu_torch.ops.quant import im2col_int8, pad_cin
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    readings = []
+    for cin, cout, d in ((130, 512, 1), (512, 128, 2), (128, 128, 1)):
+        x = torch.randint(-127, 128, (B, *hw, cin), dtype=torch.int8, device=dev, generator=g)
+        w = torch.randint(-127, 128, (cout, 3, 3, cin), dtype=torch.int8, device=dev, generator=g)
+        cols, _ = im2col_int8(x, 3, 3, 1, d)
+        wt = pad_cin(w).reshape(cout, -1).t()
+        y = torch._int_mm(cols, wt)
+        M, K = cols.shape
+        exact = True
+        for r0 in range(0, M, 1 << 16):
+            ref = (cols[r0:r0 + (1 << 16)].double() @ wt.double()).to(torch.int32)
+            exact &= bool(torch.equal(y[r0:r0 + (1 << 16)], ref))
+        same_cpu = bool(torch.equal(y.cpu(), torch._int_mm(cols.cpu(), wt.cpu())))
+        ms = cuda_ms(torch._int_mm, cols, wt, warmup=2, iters=10)
+        colsb, wtb = cols.to(torch.bfloat16), wt.to(torch.bfloat16)
+        bf16_ms = cuda_ms(torch.matmul, colsb, wtb, warmup=2, iters=10)
+        ops = 2.0 * M * K * cout
+        bound = max(ops / 1979e12, (M * K + K * cout + 4 * M * cout) / HBM_BYTES_PER_S) * 1e3
+        bound_bf16 = max(ops / PEAK_FLOPS_PER_S[torch.bfloat16], (2 * M * K + 2 * K * cout + 2 * M * cout) / HBM_BYTES_PER_S) * 1e3
+        r = {"stem": f"{cin}->{cout} d{d}", "M": M, "K": K, "N": cout, "equal_exact_f64": exact, "equal_cpu": same_cpu,
+             "int_mm_ms": round(ms, 4), "bound_ms": round(bound, 4), "bf16_mm_ms": round(bf16_ms, 4),
+             "bf16_bound_ms": round(bound_bf16, 4), "int8_tops": round(ops / ms / 1e9, 1),
+             "bf16_tflops": round(ops / bf16_ms / 1e9, 1)}
+        log("[int8] _int_mm " + json.dumps(r))
+        check(exact and same_cpu, f"[int8] _int_mm at {r['stem']}: card vs exact {exact}, card vs CPU {same_cpu}")
+        readings.append(r)
+        del x, w, cols, wt, y, colsb, wtb
+        torch.cuda.empty_cache()
+    return readings
+
+
+def int8_sites_vs_cpu(model, args, qh, qe, label):
+    """One batch-1 request through the int8 stages on the card, every int8
+    site recorded (its int8 operands, stride, dilation and int32 product):
+    each site's product equal to the CPU's conv_int8 on the card's own
+    operands. Returns the count of sites."""
+    from vsta_tpu_torch.ops import quant, quant_resnet
+
+    conv, records = quant.conv_int8, []
+
+    def recording(x_i8, w_i8, stride=1, dilation=1):
+        y = conv(x_i8, w_i8, stride, dilation)
+        records.append((x_i8, w_i8, stride, dilation, y))
+        return y
+
+    quant.conv_int8 = quant_resnet.conv_int8 = recording
+    try:
+        with torch.no_grad():
+            model(*(a[:1] for a in args), quant_head=qh, quant_encoder=qe)
+    finally:
+        quant.conv_int8 = quant_resnet.conv_int8 = conv
+    want = (0 if qh is None else len(qh["stems"])) + (0 if qe is None else len(qe["sites"]))
+    check(len(records) == want, f"[int8] {label}: {len(records)} int8 sites ran, {want} in the trees")
+    differ, shapes = [], set()
+    for i, (x_i8, w_i8, stride, dilation, y) in enumerate(records):
+        shapes.add((tuple(x_i8.shape[1:]), w_i8.shape[0], w_i8.shape[1], stride, dilation))
+        if not torch.equal(y.cpu(), conv(x_i8.cpu(), w_i8.cpu(), stride, dilation)):
+            differ.append(i)
+    log(f"[int8] {label}: {len(records)} int8 sites of a batch-1 request, card int32 equal to the CPU's on the "
+        f"card's operands at {len(records) - len(differ)}; {len(shapes)} site shapes (input HWC, Cout, k, "
+        f"stride, dilation): {sorted(shapes)}")
+    check(not differ, f"[int8] {label}: int32 differs from the CPU's at sites {differ}")
+    return len(records)
+
+
+def stage_times(dev, label, cfg, state, inputs, qh, qe):
+    """Every int8 site of a batch-1 request held to the CPU
+    (:func:`int8_sites_vs_cpu`), then the int8 stages against the float
+    ones on the same inputs (CUDA events, ms), batch 16 and 1: 'head'
+    (apply_quant_head against the float BEVDetectorHead on one bev_feat)
+    and 'encoder' (apply_quant_encoder against the float ViewEncoder on the
+    normalized frames)."""
+    from vsta_tpu_torch.export import _model
+    from vsta_tpu_torch.ops.quant import apply_quant_head, tree_to
+    from vsta_tpu_torch.ops.quant_resnet import apply_quant_encoder
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    model = _model(cfg, state, dev)
+    x, k, rt = (torch.as_tensor(a, device=dev) for a in inputs)
+    qh = None if qh is None else tree_to(qh, dev)
+    qe = None if qe is None else tree_to(qe, dev)
+    out = {"int8_sites_equal_cpu": int8_sites_vs_cpu(model, (x, k, rt), qh, qe, label)}
+    with torch.no_grad():
+        normed = (x.float() - model.img_mean) * model.img_scale
+        bev = model(x, k, rt)["bev_feat"]
+        for B in EXPORT_BATCHES:
+            if qh is not None:
+                out[f"head B={B}"] = {
+                    "float": round(cuda_ms(model.detector, bev[:B].to(model.dtype), warmup=2, iters=5), 3),
+                    "int8": round(cuda_ms(apply_quant_head, qh, bev[:B], warmup=2, iters=5), 3)}
+            if qe is not None:
+                out[f"encoder B={B}"] = {
+                    "float": round(cuda_ms(model.encoder, normed[:B], warmup=2, iters=5), 3),
+                    "int8": round(cuda_ms(apply_quant_encoder, qe, normed[:B], warmup=2, iters=5), 3)}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def export_phase(dev):
+    """Every shipped config (and the flagship with per-frame cameras)
+    exported at batch 16 and 1 and loaded on the card as one CUDA graph:
+    replay bit-equal to build_serving_fn's eager outputs, eager against
+    replay time a request (median and p90 of 20, frames already on the
+    card), the memory reserved at the peak of an eager request and of a
+    replay (:func:`request_reserved_gib`), launches at capture. Rows 1, 4
+    and 7 are held against their plain versions at these artifacts' shapes
+    by the serving phases (the same configs, batch 16 and 1), and a replay
+    is held to eager serving bit for bit, so no second pass runs here. Then
+    int8: _int_mm card vs CPU at the head's stem shapes, and the flagship
+    (--quantize-head), wildtrack_v1_resnet50 (both) and wildtrack_ms_max
+    (--quantize-encoder) exported, replayed, timed, every int8 site of a
+    batch-1 request equal to the CPU's, their heatmaps within
+    INT8_DRIFT_LIMIT of the float artifacts'. Returns (launches, readings)."""
+    import tempfile
+
+    from vsta_tpu_torch.export import calibrate
+
+    counters = all_counters()
+    total = {c.__name__: 0 for c in counters}
+    readings, heatmaps = [], {}
+    tmp = tempfile.mkdtemp(prefix="vsta_export_")
+
+    def artifacts(name, label, cfg, state, inputs, quant):
+        """Eager serving, then an artifact at each batch size: [(B, reading, heatmap)]."""
+        eager = eager_reference(cfg, state, inputs, EXPORT_LAUNCHES[name], quant)
+        out = []
+        for B in EXPORT_BATCHES:
+            launches, reading, hm = replayed_artifact(tmp, label, cfg, state, B, EXPORT_LAUNCHES[name], eager[B], quant)
+            for k in total:
+                total[k] += launches[k]
+            readings.append(reading)
+            out.append((B, reading, hm))
+        return out
+
+    try:
+        for name in EXPORT_CONFIGS:
+            cfg, state, inputs = export_config(name)
+            for B, _, hm in artifacts(name, name, cfg, state, inputs, {}):
+                heatmaps[(name, B)] = hm
+            del state
+
+        readings.append({"decode": decode_replay(dev, export_config("flagship")[0])})
+        readings.append({"int_mm": int_mm_phase(dev)})
+        for name, (head, encoder) in INT8_CONFIGS.items():
+            cfg, state, inputs = export_config(name)
+            calib_inputs = serve_inputs(cfg, B=8, seed=1)
+            calib = [tuple(a[i * 4:(i + 1) * 4] for a in calib_inputs) for i in range(2)]
+            t = time.perf_counter()
+            qh, qe = calibrate(cfg, state, calib, head=head, encoder=encoder, device=dev)
+            log(f"[int8] {name}: calibrated (head {head}, encoder {encoder}) on 2 batches of 4 frames in "
+                f"{time.perf_counter() - t:.1f}s")
+            label = f"{name} int8"
+            quant = {k: v for k, v in (("quant_head", qh), ("quant_encoder", qe)) if v is not None}
+            for B, reading, hm in artifacts(name, label, cfg, state, inputs, quant):
+                drift = float((hm - heatmaps[(name, B)]).abs().max())
+                reading["heatmap_drift_vs_float"] = round(drift, 5)
+                log(f"[int8] {label} B={B}: heatmap drift against the float artifact {drift:.5f} "
+                    f"(limit {INT8_DRIFT_LIMIT}, the JAX package's PTQ bound)")
+                check(drift <= INT8_DRIFT_LIMIT, f"{label} B={B}: heatmap drift {drift} > {INT8_DRIFT_LIMIT}")
+            stages = stage_times(dev, label, cfg, state, inputs, qh, qe)
+            log(f"[int8] {name} stages (CUDA events, ms): " + json.dumps(stages))
+            readings.append({"config": label, "stages": stages})
+            del state, qh, qe
+            torch.cuda.empty_cache()
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2633,6 +3054,9 @@ def main() -> int:
     resnet_serve, serve_readings = resnet_serving_phase(dev)
     log(f"[resnet-serve] phase {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
+    export_launches, _ = export_phase(dev)
+    log(f"[export] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
     train = flagship_training_phase(dev)
     log(f"[train] phase {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
@@ -2662,14 +3086,16 @@ def main() -> int:
     # run: flagship serving (both warp dispatches), training and the loop, deform
     # serving and training (ATTN_STRIDE 4 and 1), both families with
     # per-frame cameras, the max and attn fusions, the three ResNet configs
-    # served and trained (and sanity with GroupNorm). The ablation variants
+    # served and trained (and sanity with GroupNorm), the exported artifacts
+    # (counted at their capture: a replay goes through no Python wrapper). The ablation variants
     # are on no model path: their count is the attribution run's.
     paths = [train, loop, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train,
-             resnet_serve, resnet_train]
+             resnet_serve, resnet_train, export_launches]
     on_paths = {k: sum(path.get(k, 0) for path in paths) for k in train}
     entries += [views_entry, ablation_entry]
     counts = {
-        f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"] + loop["warp_tiles"],
+        f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"] + loop["warp_tiles"]
+        + export_launches["warp_tiles"],
         f"{WARP_TPU}:353": serve_launches["windowed"],
         **{e["replaces"]: on_paths[e["name"]] for e in entries if e["name"] in on_paths},
         ablation_entry["replaces"]: ablation_entry["launches"],

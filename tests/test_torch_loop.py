@@ -302,7 +302,9 @@ def _cli(args, cwd):
 
 def test_train_resume_and_evaluate_clis(tree, tmp_path):
     """python -m vsta_tpu_torch.train, then --resume for one more epoch,
-    then .evaluate on the best checkpoint, all with RUNTIME.DEVICE cpu."""
+    then .evaluate on the best checkpoint, all with RUNTIME.DEVICE cpu;
+    .evaluate --quantize-head scores the int8 head, calibrated on two
+    train-split batches."""
     import yaml
 
     cfg1, cfg2 = tmp_path / "one.yaml", tmp_path / "two.yaml"
@@ -319,8 +321,11 @@ def test_train_resume_and_evaluate_clis(tree, tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     metrics = json.loads(r.stdout[r.stdout.index("{"):])
     assert metrics["n_frames"] == float(N_FRAMES) and set(metrics) >= {"precision", "recall", "f1", "moda", "modp"}
-    r = _cli(["vsta_tpu_torch.evaluate", "--config", str(cfg2), "--quantize-head"], tmp_path)
-    assert r.returncode != 0 and "item 6" in r.stderr
+    r = _cli(["vsta_tpu_torch.evaluate", "--config", str(cfg2), "--checkpoint", str(tmp_path / "ckpt" / "best"),
+              "--split", "all", "--quantize-head"], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "[quant] int8 head calibrated on 2 train-split batches" in r.stdout
+    assert json.loads(r.stdout[r.stdout.index("{"):])["n_frames"] == float(N_FRAMES)
 
 
 # -- utils --------------------------------------------------------------------

@@ -165,10 +165,33 @@ def test_inference_cli_tracks_two_clips(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--quantize-head", "--quantize-encoder"])
 def test_inference_cli_int8_flags_raise(flag, tmp_path):
-    """The int8 serving paths are not ported: the flags raise and name
-    their ROADMAP item, before any config is read."""
+    """The int8 flags of python -m vsta_tpu_torch.inference on the simple
+    backbone: --quantize-head calibrates on two train-split batches and
+    writes a JSON a frame; --quantize-encoder raises the JAX package's
+    ValueError (BatchNorm-fold PTQ is for the resnet family) and writes
+    nothing."""
+    root = generate_synthetic_wildtrack(tmp_path / "wt", n_frames=4, n_views=2, n_people=3, img_hw=(108, 192))
+    raw = {
+        "DATA": {"BATCH_SIZE": 2, "IMG_SIZE": [3, 54, 96], "VIEWS": 2, "DATA_ROOT": str(root)},
+        "MODEL": {"BACKBONE": "simple", "FEAT_DIM": 8, "OUT_INDEX": 1, "BEV_SIZE": [32, 12, 24],
+                  "BEV_BOUNDS": [-12.0, 12.0, -6.0, 6.0], "BEV_PROJ_CH": 8},
+        "RUNTIME": {"DEVICE": "cpu", "NUM_WORKERS": 1, "OUTPUT_DIR": "out/", "USE_AMP": False},
+        "EVAL": {"CONF_THRESH": 0.05, "MAX_DETS": 16},
+    }
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    CheckpointManager(str(tmp_path / "ckpt")).save(
+        "best", create_state(from_dict(raw), seed=3, device="cpu", steps_per_epoch=1), epoch=0, best_f1=0.0)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
-    r = subprocess.run([sys.executable, "-m", "vsta_tpu_torch.inference", "--config", str(tmp_path / "none.yaml"), flag],
-                       capture_output=True, text=True, timeout=120, env=env, cwd=str(tmp_path))
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr and "Queue 1 item 6" in r.stderr, r.stderr[-2000:]
+    r = subprocess.run([sys.executable, "-m", "vsta_tpu_torch.inference", "--config", str(cfg_path), "--checkpoint",
+                        str(tmp_path / "ckpt" / "best"), flag],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path))
+    files = sorted((tmp_path / "out").glob("frame_*.json"))
+    if flag == "--quantize-head":
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "[quant] int8 head calibrated on 2 train-split batches" in r.stdout
+        assert len(files) == 4
+    else:
+        assert r.returncode != 0 and "ValueError" in r.stderr and "resnet family" in r.stderr, r.stderr[-2000:]
+        assert not files

@@ -316,6 +316,50 @@ def from_dict(raw: Dict[str, Any]) -> Config:
     return validate(cfg)
 
 
+def to_dict(cfg: Config) -> Dict[str, Any]:
+    """A Config back in the reference YAML schema: every key
+    :func:`from_dict` reads, so ``from_dict(to_dict(cfg)) == cfg``."""
+    d, m, t, l, r, e, k = cfg.data, cfg.model, cfg.train, cfg.loss, cfg.runtime, cfg.eval, cfg.track
+    return {
+        "DATA": {
+            "BATCH_SIZE": d.batch_size, "IMG_SIZE": [3, d.img_size[0], d.img_size[1]], "VIEWS": d.views,
+            "DATA_ROOT": d.data_root, "CACHE_IMAGES": d.cache_images, "USE_POSITION_ID": d.use_position_id,
+            "DEVICE_NORMALIZE": d.device_normalize,
+        },
+        "MODEL": {
+            "BACKBONE": m.backbone, "PRETRAINED": m.pretrained, "PRETRAINED_PATH": m.pretrained_path,
+            "FEAT_DIM": m.feat_dim, "NORM": m.norm,
+            "OUT_INDEX": list(m.out_index) if isinstance(m.out_index, tuple) else m.out_index,
+            "BEV_SIZE": [32, m.bev_size[0], m.bev_size[1]], "BEV_BOUNDS": list(m.bev_bounds),
+            "BEV_PROJ_CH": m.bev_proj_ch, "WARP_IMPL": m.warp_impl, "FUSION": m.fusion,
+            "STATIC_CAMERAS": m.static_cameras, "HEAD_MID1": m.head_mid1, "HEAD_MID2": m.head_mid2,
+            "ATTN_HEADS": m.attn_heads, "ATTN_POINTS": m.attn_points, "ATTN_STRIDE": m.attn_stride,
+        },
+        "TRAIN": {
+            "EPOCHS": t.epochs, "LR": t.lr, "OPT": t.opt, "WEIGHT_DECAY": t.weight_decay,
+            "LR_SCHEDULER": t.lr_scheduler, "WARMUP_EPOCHS": t.warmup_epochs, "ACCUM_STEPS": t.accum_steps,
+            "PATIENCE": t.patience, "SEED": t.seed, "FREEZE_BACKBONE": t.freeze_backbone,
+        },
+        "LOSS": {
+            "DEFAULT_BOX_WH": list(l.default_box_wh), "MAX_OBJECTS": l.max_objects, "HM_ALPHA": l.hm_alpha,
+            "HM_BETA": l.hm_beta, "HM_WEIGHT": l.hm_weight, "OFFSET_WEIGHT": l.offset_weight,
+            "SIZE_WEIGHT": l.size_weight, "GAUSSIAN_MIN_RADIUS": l.gaussian_min_radius,
+            "GAUSSIAN_IOU": l.gaussian_iou,
+        },
+        "RUNTIME": {
+            "DEVICE": r.device, "NUM_WORKERS": r.num_workers, "SAVE_DIR": r.save_dir, "OUTPUT_DIR": r.output_dir,
+            "USE_AMP": r.use_amp, "DEBUG_MAX_STEPS": r.debug_max_steps, "DEBUG_NANS": r.debug_nans,
+            "MEMORY_LIMIT_PERCENT": r.memory_limit_percent, "MESH_DATA": r.mesh_data, "MESH_VIEW": r.mesh_view,
+        },
+        "EVAL": {
+            "CONF_THRESH": e.conf_thresh, "NMS_DIST_M": e.nms_dist_m, "INTERVAL": e.interval,
+            "MAX_DETS": e.max_dets, "BASELINE_MODEL": e.baseline_model, "BASELINE_F1": e.baseline_f1,
+            "IMPROVEMENT_THRESHOLD": e.improvement_threshold,
+        },
+        "TRACK": {"MAX_AGE": k.max_age, "MIN_HITS": k.min_hits, "MATCH_DIST_M": k.match_dist_m},
+    }
+
+
 def load_config(path: str) -> Config:
     """Load a reference-schema YAML config file (UTF-8, like ref train.py:40-43)."""
     with open(path, "r", encoding="utf-8") as f:

@@ -22,6 +22,9 @@ names:
 
 A top-level key of the params tree that the port does not know raises.
 
+:func:`quant_head_from_jax` and :func:`quant_encoder_from_jax` map the JAX
+package's int8 serving trees (numpy leaves) onto the port's layout.
+
 :func:`params_from_flax` maps a ``params`` tree alone (or a gradient tree,
 which has its shape) and :func:`batch_stats_from_flax` a ``batch_stats``
 tree alone, so that a test can hold the port's gradients, updated
@@ -43,6 +46,7 @@ from .config import Config
 from .models.bevnet import BEVNet
 from .models.encoders.efficientnet import B0_STAGES
 from .models.encoders.resnet import ResNetFeatures
+from .ops.quant import check_impl
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -175,6 +179,58 @@ def params_from_flax(params: Mapping) -> StateDict:
 def batch_stats_from_flax(stats: Mapping) -> StateDict:
     """A Flax ``batch_stats`` tree -> the port's BatchNorm buffer names."""
     return _from_flax(None, stats)
+
+
+def _i8_kernel(w: Any) -> torch.Tensor:
+    """An int8 HWIO kernel -> the port's [Cout, KH, KW, Cin]."""
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(w, dtype=np.int8), (3, 0, 1, 2))))
+
+
+def _oihw(w: Any) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def quant_head_from_jax(qp: Mapping) -> Dict:
+    """The JAX package's int8 head tree (``vsta_tpu.ops.quant.quantize_head``,
+    numpy leaves) -> the port's (:mod:`~vsta_tpu_torch.ops.quant`): int8
+    kernels HWIO -> [Cout, KH, KW, Cin], the f32 output kernels -> OIHW."""
+    stems = [
+        {
+            "w_i8": _i8_kernel(st["w_i8"]),
+            "w_scale": _t(st["w_scale"]),
+            "x_scale": _t(st["x_scale"]).reshape(()),
+            "gn_scale": _t(st["gn_scale"]),
+            "gn_bias": _t(st["gn_bias"]),
+        }
+        for st in qp["stems"]
+    ]
+    out = {name: {"kernel": _oihw(o["kernel"]), "bias": _t(o["bias"])} for name, o in qp["out"].items()}
+    return {"stems": stems, "out": out, "impl": check_impl(str(qp["impl"]))}
+
+
+def quant_encoder_from_jax(qe: Mapping) -> Dict:
+    """The JAX package's int8 encoder tree
+    (``vsta_tpu.ops.quant_resnet.quantize_encoder``, numpy leaves) -> the
+    port's (:mod:`~vsta_tpu_torch.ops.quant_resnet`); site keys are shared."""
+    sites = {
+        key: {
+            "w_i8": _i8_kernel(st["w_i8"]),
+            "w_scale": _t(st["w_scale"]),
+            "b": _t(st["b"]),
+            "x_scale": _t(st["x_scale"]).reshape(()),
+        }
+        for key, st in qe["sites"].items()
+    }
+    oi = qe["out_index"]
+    return {
+        "variant": str(qe["variant"]),
+        "stem": {"w": _oihw(qe["stem"]["w"]), "b": _t(qe["stem"]["b"])},
+        "sites": sites,
+        "proj": {"kernel": _t(qe["proj"]["kernel"]), "bias": _t(qe["proj"]["bias"])},
+        "out_index": [int(i) for i in oi] if isinstance(oi, (tuple, list)) else int(oi),
+        "fold_proj": bool(qe["fold_proj"]),
+        "impl": check_impl(str(qe["impl"])),
+    }
 
 
 def init_state_dict(cfg: Config, seed: int = 0) -> StateDict:

@@ -7,8 +7,8 @@ Loads a checkpoint of this package (``training/checkpoint.py``), scores the
 split (the 400/100 or 80/20 protocol of ``data/pipeline.split_train_val``)
 and prints precision, recall, F1, MLE, MODA and MODP as one JSON block,
 NaN as null. Runs on the CUDA device unless ``RUNTIME.DEVICE`` is ``cpu``.
-The int8 paths (``--quantize-head``, ``--quantize-encoder``) are not
-ported: they raise.
+``--quantize-head`` / ``--quantize-encoder`` score the int8 serving paths,
+calibrated on two batches of the train split (``export.calibrate``).
 """
 
 import argparse
@@ -19,6 +19,7 @@ from pathlib import Path
 from .config import load_config
 from .data.pipeline import Prefetcher, split_train_val
 from .data.wildtrack import WildtrackDataset
+from .export import calibrate, train_split_batches
 from .training.checkpoint import CheckpointManager
 from .training.loop import one_device
 from .training.metrics import DetectionMetrics
@@ -32,12 +33,11 @@ def main() -> None:
     parser.add_argument("--checkpoint", type=str, default="checkpoints/best")
     parser.add_argument("--split", type=str, default="val", choices=["val", "train", "all"])
     parser.add_argument("--quantize-head", action="store_true", default=False,
-                        help="int8 detector stem: not ported (ROADMAP Queue 1 item 6)")
+                        help="score the int8 detector stem, calibrated on two train-split batches")
     parser.add_argument("--quantize-encoder", action="store_true", default=False,
-                        help="int8 ResNet encoder: not ported (ROADMAP Queue 1 item 6)")
+                        help="score the int8 ResNet encoder (BatchNorm-fold PTQ; resnet backbones only), "
+                             "calibrated on two train-split batches")
     args = parser.parse_args()
-    if args.quantize_head or args.quantize_encoder:
-        raise NotImplementedError("the int8 serving paths are ROADMAP Queue 1 item 6, 'int8'")
 
     cfg = load_config(args.config)
     dev = runtime_device(cfg.runtime.device)
@@ -52,7 +52,13 @@ def main() -> None:
     state, epoch, f1 = CheckpointManager(str(ckpt_path.parent)).restore(ckpt_path.name, state)
     print(f"[ckpt] loaded {args.checkpoint} (epoch {epoch}, f1={f1:.3f})")
 
-    eval_step = make_eval_step(cfg)
+    quant_head = quant_encoder = None
+    if args.quantize_head or args.quantize_encoder:
+        quant_head, quant_encoder = calibrate(
+            cfg, state.model.state_dict(), train_split_batches(cfg, ds, cfg.data.batch_size, dev), head=args.quantize_head,
+            encoder=args.quantize_encoder, device=dev, source="train-split ",
+        )
+    eval_step = make_eval_step(cfg, quant_head=quant_head, quant_encoder=quant_encoder)
     acc = DetectionMetrics(match_dist=cfg.eval.nms_dist_m)
     for batch in dl:
         out = eval_step(state, batch)

@@ -76,6 +76,9 @@ def bev_sample_coords_with_depth(
     Hb, Wb = grid.shape[0], grid.shape[1]
     H_w2i = compute_homography(K, Rt)
     uv, w = project_points(H_w2i, grid.reshape(-1, 3))
-    scale = torch.tensor([Wf / float(W_img), Hf / float(H_img)], dtype=uv.dtype, device=uv.device)
+    # filled on the device: a tensor built from a list, or an element set
+    # from a Python number, would copy from the host
+    scale = torch.stack([torch.full((), r, dtype=uv.dtype, device=uv.device)
+                         for r in (Wf / float(W_img), Hf / float(H_img))])
     lead = H_w2i.shape[:-2]
     return (uv * scale).reshape(lead + (Hb, Wb, 2)), w.reshape(lead + (Hb, Wb))

@@ -10,8 +10,9 @@ tracker (``tracking/``) over the decoded frames and adds "tracks";
 ``--clips N`` (with ``--track``) runs N temporal windows as the N rows of
 each batch, one online tracker a clip, and records each frame's "clip".
 ``--save_vis`` writes the first batch's BEV heatmap. Runs on the CUDA
-device unless ``RUNTIME.DEVICE`` is ``cpu``. The int8 paths
-(``--quantize-head``, ``--quantize-encoder``) are not ported: they raise.
+device unless ``RUNTIME.DEVICE`` is ``cpu``. ``--quantize-head`` /
+``--quantize-encoder`` run the int8 serving paths, calibrated on two
+batches of the train split (``export.calibrate``).
 """
 
 import argparse
@@ -20,6 +21,7 @@ from pathlib import Path
 from .config import load_config
 from .data.pipeline import Prefetcher, multi_clip_plan
 from .data.wildtrack import WildtrackDataset
+from .export import calibrate, train_split_batches
 from .tracking import SortTracker
 from .training.checkpoint import CheckpointManager
 from .training.loop import one_device
@@ -62,14 +64,13 @@ def main() -> None:
                              "one online tracker per clip")
     parser.add_argument("--save_vis", action="store_true", default=False)
     parser.add_argument("--quantize-head", action="store_true", default=False,
-                        help="int8 detector stem: not ported (ROADMAP Queue 1 item 6)")
+                        help="score the int8 detector stem, calibrated on two train-split batches")
     parser.add_argument("--quantize-encoder", action="store_true", default=False,
-                        help="int8 ResNet encoder: not ported (ROADMAP Queue 1 item 6)")
+                        help="score the int8 ResNet encoder (BatchNorm-fold PTQ; resnet backbones only), "
+                             "calibrated on two train-split batches")
     args = parser.parse_args()
     if args.clips > 1 and not args.track:
         parser.error("--clips requires --track")
-    if args.quantize_head or args.quantize_encoder:
-        raise NotImplementedError("the int8 serving paths are ROADMAP Queue 1 item 6, 'int8'")
 
     cfg = load_config(args.config)
     dev = runtime_device(cfg.runtime.device)
@@ -92,7 +93,13 @@ def main() -> None:
         trackers = [SortTracker(max_age=t.max_age, min_hits=t.min_hits, match_dist_m=t.match_dist_m)
                     for _ in range(max(1, args.clips))]
 
-    eval_step = make_eval_step(cfg)
+    quant_head = quant_encoder = None
+    if args.quantize_head or args.quantize_encoder:
+        quant_head, quant_encoder = calibrate(
+            cfg, state.model.state_dict(), train_split_batches(cfg, ds, batch_size, dev), head=args.quantize_head,
+            encoder=args.quantize_encoder, device=dev, source="train-split ",
+        )
+    eval_step = make_eval_step(cfg, quant_head=quant_head, quant_encoder=quant_encoder)
     out_dir = cfg.runtime.output_dir
     n_frames = 0
     for batch in dl:

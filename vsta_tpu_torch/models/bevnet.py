@@ -40,7 +40,7 @@ gradient at the encoder's output.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -49,6 +49,7 @@ from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..geometry import bev_sample_coords_with_depth, ground_grid
 from ..ops.grouped_cuda import KERNELS, warp_views
+from ..ops.quant import apply_quant_head
 from ..ops.resize import resize_bilinear
 from ..ops.warp_cuda import FusedWarpProj, fused_warp_proj, fused_warp_proj_cuda, warp_tiles
 from ..ops.warp_views_cuda import warp_views_sum
@@ -146,6 +147,11 @@ class BEVNet(nn.Module):
         self.warp = warp_tiles
         self.views_sum = warp_views_sum
         self.grouped = KERNELS
+        # the uint8 path's normalization, as buffers: built once, moved with
+        # the model, so a request copies nothing from the host
+        mean = torch.as_tensor(IMAGENET_MEAN) * 255.0
+        self.register_buffer("img_mean", mean, persistent=False)
+        self.register_buffer("img_scale", 1.0 / (torch.as_tensor(IMAGENET_STD) * 255.0), persistent=False)
 
     @classmethod
     def from_config(cls, cfg: Config) -> "BEVNet":
@@ -181,24 +187,40 @@ class BEVNet(nn.Module):
         return self
 
     def forward(
-        self, images: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor, return_per_view: bool = False
+        self, images: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor, return_per_view: bool = False,
+        quant_head: Optional[Dict] = None, quant_encoder: Optional[Dict] = None,
     ) -> Dict[str, torch.Tensor]:
         """images [B, V, H, W, 3] uint8 or float; K [B, V, 3, 3]; Rt
         [B, V, 4, 4] world->camera (with static cameras frame 0's calibration
         serves the batch). Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32;
         with ``return_per_view`` the unfused fusions add every view's BEV map,
-        'bev_per_view' [B, V, Hb, Wb, C], as the JAX package does."""
+        'bev_per_view' [B, V, Hb, Wb, C], as the JAX package does.
+        ``quant_head`` / ``quant_encoder``: int8 serving trees
+        (:mod:`~vsta_tpu_torch.ops.quant`, :mod:`~vsta_tpu_torch.ops.quant_resnet`)
+        on the model's device; that stage then runs in int8 in place of its
+        float parameters (serving only)."""
         B, V, H, W, _ = images.shape
         if V != self.views:
             raise ValueError(f"model built for {self.views} views, got {V}")
         Hb, Wb = self.bev_size
         dev = images.device
         if images.dtype == torch.uint8:
-            mean = torch.as_tensor(IMAGENET_MEAN, device=dev) * 255.0
-            scale = 1.0 / (torch.as_tensor(IMAGENET_STD, device=dev) * 255.0)
-            images = (images.float() - mean) * scale
+            images = (images.float() - self.img_mean) * self.img_scale
 
-        enc_out = self.encoder(images)
+        if quant_encoder is not None:
+            from ..ops.quant_resnet import apply_quant_encoder  # it imports the trunk's specs from models/
+
+            if quant_encoder["fold_proj"] != self.fold_proj:
+                raise ValueError(
+                    "quant_encoder was calibrated for a different fold_proj contract than this model configuration"
+                )
+            enc_out = apply_quant_encoder(quant_encoder, images)
+            if self.fold_proj:
+                enc_out = (enc_out[0].to(self.dtype), enc_out[1], enc_out[2])
+            else:
+                enc_out = enc_out.to(self.dtype)
+        else:
+            enc_out = self.encoder(images)
         feats, enc_pk, enc_pb = enc_out if self.fold_proj else (enc_out, None, None)
         if self.freeze_backbone:
             feats = feats.detach()
@@ -220,7 +242,10 @@ class BEVNet(nn.Module):
             per_view = self.per_view(feats, coords)
             bev_main = self.fuse_views(per_view)
         bev_feat = torch.cat([bev_main, pos.to(bev_main.dtype)], dim=-1)
-        out = self.detector(bev_feat)
+        if quant_head is not None:
+            out = apply_quant_head(quant_head, bev_feat.float())
+        else:
+            out = self.detector(bev_feat)
         out["bev_feat"] = bev_feat.float()
         if return_per_view and per_view is not None:
             out["bev_per_view"] = per_view

@@ -81,7 +81,7 @@ class AttentionFusion(nn.Module):
         x = bev_views.to(self.dtype)
         logits = self.logit(torch.tanh(self.hidden(x)))[..., 0]  # [B, V, H, W]
         if coverage is not None:
-            neg = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+            neg = torch.full((), -1e9, dtype=logits.dtype, device=logits.device)
             logits = torch.where(coverage > 1e-6, logits, neg)
         w = torch.softmax(logits, dim=1)
         return torch.einsum("bvhw,bvhwc->bhwc", w, x)
@@ -158,7 +158,7 @@ class DeformableFusion(nn.Module):
         any_valid = valid.any(dim=-1)  # [B, Hq, Wq]
 
         # masked softmax over (view, point) per head
-        neg = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+        neg = torch.full((), -1e9, dtype=logits.dtype, device=logits.device)
         logits = torch.where(valid[:, :, :, :, None, None], logits, neg)
         flat = logits.permute(0, 1, 2, 4, 3, 5).reshape(B, Hq, Wq, M, V * P)
         attn = torch.softmax(flat, dim=-1).reshape(B, Hq, Wq, M, V, P)

@@ -113,7 +113,7 @@ def anchored_taps(
     Hf, Wf = feat_hw
     x, y = coords[..., 0], coords[..., 1]
     finite = torch.isfinite(x) & torch.isfinite(y)
-    far = torch.tensor(-10.0, dtype=torch.float32, device=coords.device)
+    far = torch.full((), -10.0, dtype=torch.float32, device=coords.device)
     xs = torch.where(finite, x.float(), far)
     ys = torch.where(finite, y.float(), far)
     ya = torch.floor(ys).clamp(0, Hf - 1).to(torch.int32)

@@ -9,13 +9,14 @@ for ``device="cpu"``; without a CUDA device it raises.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
 from .config import Config
 from .models.bevnet import BEVNet
 from .ops.decode import decode_detections
+from .ops.quant import tree_to
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -32,27 +33,33 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def build_serving_fn(
-    cfg: Config, state_dict: Mapping[str, torch.Tensor], *, device: str | torch.device = "cuda"
+    cfg: Config, state_dict: Mapping[str, torch.Tensor], *, quant_head: Optional[Dict] = None,
+    quant_encoder: Optional[Dict] = None, device: str | torch.device = "cuda",
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Forward + decode for ``cfg`` with ``state_dict``'s weights.
 
     The returned ``serve(images, K, Rt)`` takes arrays or tensors
     (images [B, V, H, W, 3] uint8 or float, K [B, V, 3, 3], Rt
     [B, V, 4, 4]), moves them to the device and returns device tensors.
-    ``serve.model`` is the :class:`BEVNet` it runs.
+    ``serve.model`` is the :class:`BEVNet` it runs. ``quant_head`` /
+    ``quant_encoder``: int8 trees from ``export.calibrate_quant_head`` /
+    ``calibrate_quant_encoder``, moved to the device; that stage then runs
+    in int8.
     """
     dev = resolve_device(device)
     model = BEVNet.from_config(cfg)
     model.load_state_dict(state_dict)
     model.to(dev).eval()
     e, m = cfg.eval, cfg.model
+    qh = None if quant_head is None else tree_to(quant_head, dev)
+    qe = None if quant_encoder is None else tree_to(quant_encoder, dev)
 
     @torch.no_grad()
     def serve(images, K, Rt) -> Dict[str, torch.Tensor]:
         images = torch.as_tensor(images, device=dev)
         K = torch.as_tensor(K, device=dev, dtype=torch.float32)
         Rt = torch.as_tensor(Rt, device=dev, dtype=torch.float32)
-        out = model(images, K, Rt)
+        out = model(images, K, Rt, quant_head=qh, quant_encoder=qe)
         det = decode_detections(
             out["heatmap"], out["offset"], out["size"],
             bounds=m.bev_bounds, conf_thresh=e.conf_thresh,

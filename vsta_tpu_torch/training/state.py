@@ -148,16 +148,20 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Batch], Metrics]:
     return train_step
 
 
-def make_eval_step(cfg: Config) -> Callable[[TrainState, Batch], Metrics]:
+def make_eval_step(
+    cfg: Config, quant_head: Optional[Dict] = None, quant_encoder: Optional[Dict] = None
+) -> Callable[[TrainState, Batch], Metrics]:
     """Returns ``eval_step(state, batch)``: the forward in eval mode and the
-    decode, {'boxes', 'scores', 'valid', 'heatmap'} on the device."""
+    decode, {'boxes', 'scores', 'valid', 'heatmap'} on the device.
+    ``quant_head`` / ``quant_encoder``: int8 trees (``export.calibrate_*``)
+    on the state's device; the eval then scores the int8 serving path."""
     e, m = cfg.eval, cfg.model
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> Metrics:
         b = batch_to_device(batch, state.device)
         state.model.eval()
-        out = state.model(b["images"], b["K"], b["Rt"])
+        out = state.model(b["images"], b["K"], b["Rt"], quant_head=quant_head, quant_encoder=quant_encoder)
         det = decode_detections(
             out["heatmap"], out["offset"], out["size"], bounds=m.bev_bounds,
             conf_thresh=e.conf_thresh, nms_dist_m=e.nms_dist_m, max_dets=e.max_dets,
