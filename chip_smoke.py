@@ -142,7 +142,27 @@ Phases, each of which raises on failure (exit code != 0):
    bit-equal to eager, timed, its heatmap within 0.05 of the float
    artifact's (the JAX package's PTQ bound), every int8 site of a batch-1
    request equal to the CPU's conv_int8 on the same int8 operands, and the
-   int8 head and encoder against the float ones (CUDA events).
+   int8 head and encoder against the float ones (CUDA events);
+14. the mesh (after phase 10): a world of one, the flagship's train step
+   x3 and an eval step through ``parallel.make_mesh()`` with no process
+   group, bit-equal to the single-device path with the same launches;
+   then three worlds of two gloo ranks on cuda:0 (``--multidevice-rank``
+   subprocesses of this script; NCCL refuses two ranks on one card): the
+   flagship in float32 on a 2x1 mesh, configs/wildtrack_ms_max.yaml as
+   shipped on 1x2 (max over the views gathered, rows 4 and 3), the
+   flagship with 6 views on 1x2 (the all-reduce after warp_tiles at a
+   local V of 3); each 3 train steps held to the same steps on one device
+   (losses, the first call's gradients within the run's own limit; a run
+   with the frames rotated by one as a control of the summation order, and
+   the encoder's eval forward in one call against the ranks' parts), rank
+   0's kernels at the shapes the mesh gave them against their plain
+   versions, parameters bit-equal across the ranks, ms a step a rank,
+   launches by kernel (``[multidevice]``);
+15. ``[tf32]``: an f32 wildtrack_sanity request (batch 16) and a flagship
+   heatmap (batch 1) with cuDNN's TF32 at its default and off, timed, the
+   heatmaps within TF32_HEATMAP_BOUND;
+16. ``[overfit]``: ``python -m vsta_tpu_torch.overfit_check`` (ResNet-18,
+   4 views at 216x384, batch 2, 40 epochs) reaches F1 0.8.
 
 Prints the kernels JSON line (eight kernels), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -310,6 +330,51 @@ def tile_stats(label, idx, wts, P, grid_w):
         f"{padded / max(live, 1):.2f}")
 
 
+# the kernels line's two entries of warp_tiles, by the warp's output dtype
+WARP_ENTRY = {
+    torch.bfloat16: "warp_tiles (resident dispatch: compute-dtype out)",
+    torch.float32: "warp_tiles (windowed dispatch: f32 out)",
+}
+
+
+def warp_reading(dev, name, feats, idx, wts, out_dtype, grid_w, max_abs_err):
+    """warp_tiles at one shape: its time, the plain version's, sparse.mm's
+    on the same taps and the bound from these inputs; ``max_abs_err`` is
+    the case's error against the plain version."""
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    V, P, Kf = feats.shape
+    N = idx.shape[1]
+    nz = wts != 0
+    nnz = int(nz.sum())
+    rows = torch.unique((torch.arange(V, device=dev)[:, None, None] * P + idx)[nz]).numel()
+    ms = cuda_ms(warp_tiles, feats, idx, wts, out_dtype=out_dtype, grid_w=grid_w, warmup=5, iters=50)
+    plain_ms = cuda_ms(warp_tiles_ref, feats, idx, wts, out_dtype=out_dtype, warmup=1, iters=5)
+    csr = shared_taps_coo(idx, wts, P).to(feats.dtype).to_sparse_csr()
+    dense = feats.reshape(V * P, Kf)
+    lib_out = torch.sparse.mm(csr, dense)
+    lib_err = float((lib_out.float() - warp_tiles_ref(feats, idx, wts, out_dtype=torch.float32)).abs().max())
+    library_ms = cuda_ms(torch.sparse.mm, csr, dense, warmup=2, iters=10)
+    in_size, out_size = feats.element_size(), torch.empty((), dtype=out_dtype).element_size()
+    nbytes = rows * Kf * in_size + N * Kf * out_size + V * N * 4 * 8
+    flops = 2 * nnz * Kf
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[feats.dtype] * 1e3
+    reading = {
+        "shape": f"V={V} P={P} N={N} K={Kf} {str(feats.dtype).split('.')[-1]}->{str(out_dtype).split('.')[-1]}",
+        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+    log(
+        f"[kernel] {name} {reading['shape']}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(sparse.mm)="
+        f"{library_ms:.4f} (library max_abs_err {lib_err:.3e}) bound_ms={reading['bound_ms']:.4f} "
+        f"({reading['bound_by']}: {nbytes / 1e6:.1f} MB = {rows} source rows read once + out + LUT; "
+        f"{flops / 1e9:.2f} GFLOP over {nnz} live taps of {V * N * 4}) roofline_share={reading['bound_ms'] / ms:.3f}"
+    )
+    return reading
+
+
 def kernel_phase(dev):
     from vsta_tpu_torch.ops.warp import precompute_warp_lut
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
@@ -371,44 +436,17 @@ def kernel_phase(dev):
     tile_stats("random taps", ridx, rwts, P, Wb)
 
     # timing at the main path's shapes
-    nz = wts != 0
-    nnz = int(nz.sum())
-    rows = torch.unique((torch.arange(V, device=dev)[:, None, None] * P + idx)[nz]).numel()
-    coo = shared_taps_coo(idx, wts, P)
     entries = []
     for name, feats, out_dtype, replaces in (
-        ("warp_tiles (resident dispatch: compute-dtype out)", bf, torch.bfloat16, f"{WARP_TPU}:162"),
-        ("warp_tiles (windowed dispatch: f32 out)", f32, torch.float32, f"{WARP_TPU}:353"),
+        (WARP_ENTRY[torch.bfloat16], bf, torch.bfloat16, f"{WARP_TPU}:162"),
+        (WARP_ENTRY[torch.float32], f32, torch.float32, f"{WARP_TPU}:353"),
         (f"warp_tiles K={TRAIN_K} (training forward, resident dispatch)", bf_train, torch.bfloat16, None),
     ):
-        Kf = feats.shape[-1]
-        ms = cuda_ms(warp_tiles, feats, idx, wts, out_dtype=out_dtype, grid_w=Wb, warmup=5, iters=50)
-        plain_ms = cuda_ms(warp_tiles_ref, feats, idx, wts, out_dtype=out_dtype, warmup=1, iters=5)
-        csr = coo.to(feats.dtype).to_sparse_csr()
-        dense = feats.reshape(V * P, Kf)
-        lib_out = torch.sparse.mm(csr, dense)
-        lib_err = float((lib_out.float() - warp_tiles_ref(feats, idx, wts, out_dtype=torch.float32)).abs().max())
-        library_ms = cuda_ms(torch.sparse.mm, csr, dense, warmup=2, iters=10)
-        in_size, out_size = feats.element_size(), torch.empty((), dtype=out_dtype).element_size()
-        nbytes = rows * Kf * in_size + N * Kf * out_size + V * N * 4 * 8
-        flops = 2 * nnz * Kf
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_PER_S[feats.dtype] * 1e3
-        entry = {
-            "name": name, "route": "cuda", "source": WARP_SRC, "replaces": replaces,
-            "launches": None,
-            "max_abs_err": errs[f"bf16->bf16 K={K}" if out_dtype == torch.bfloat16 else f"f32->f32 K={K}"],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-        }
-        log(
-            f"[kernel] {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(sparse.mm)={library_ms:.4f} "
-            f"(library max_abs_err {lib_err:.3e}) bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}: "
-            f"{nbytes / 1e6:.1f} MB = {rows} source rows read once + out + LUT; {flops / 1e9:.2f} GFLOP "
-            f"over {nnz} live taps of {V * N * 4}) roofline_share={entry['bound_ms'] / ms:.3f}"
-        )
+        err = errs[f"bf16->bf16 K={K}" if out_dtype == torch.bfloat16 else f"f32->f32 K={K}"]
+        reading = warp_reading(dev, name, feats, idx, wts, out_dtype, Wb, err)
         if replaces is not None:  # the K=256 shape is row 1's kernel again: logged, not a new entry
-            entries.append(entry)
+            entries.append({"name": name, "route": "cuda", "source": WARP_SRC, "replaces": replaces,
+                            "launches": None, **reading, "other_shapes": []})
     # batch 1's shape, and the tiling without the grid's width, beside
     more = {
         "K=128 (batch 1)": cuda_ms(warp_tiles, bf[..., :128].contiguous(), idx, wts, out_dtype=torch.bfloat16,
@@ -2460,13 +2498,38 @@ def capturing_kernels(store):
     return gc.KERNELS._replace(sample=sample, scatter_taps=scatter_taps)
 
 
+def capturing_warp(store):
+    """warp_tiles, keeping the inputs of its first call in ``store``: the
+    shape a model path gives it."""
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles
+
+    def warp(feats, idx, wts, *, out_dtype, grid_w=None):
+        store.setdefault("warp_tiles", (feats.detach(), idx, wts.detach(), out_dtype, grid_w))
+        return warp_tiles(feats, idx, wts, out_dtype=out_dtype, grid_w=grid_w)
+
+    return warp
+
+
 def captured_readings(dev, label, store):
-    """Rows 4 and 3 on the inputs a model call gave them: each against its
-    plain version (row 4 bit-equal, row 3 within 1e-5 of max|ref|), then
-    its time, the plain version's, the library's and the bound."""
+    """warp_tiles and rows 4 and 3 on the inputs a model call gave them:
+    each against its plain version (warp_tiles within one ulp of its
+    output dtype as in kernel_phase, row 4 bit-equal, row 3 within 1e-5 of
+    max|ref|), then its time, the plain version's, the library's and the
+    bound. The warp's reading is keyed by its entry in the kernels line."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
 
     readings = {}
+    if "warp_tiles" in store:
+        feats, idx, wts, out_dtype, grid_w = store["warp_tiles"]
+        out = warp_tiles(feats, idx, wts, out_dtype=out_dtype, grid_w=grid_w)
+        rule = "bf16" if out_dtype == torch.bfloat16 else "f32"
+        err = hold(f"warp_tiles {label}", out, warp_tiles_ref(feats, idx, wts, out_dtype=out_dtype), rule)
+        check(torch.equal(out, warp_tiles(feats, idx, wts, out_dtype=out_dtype, grid_w=grid_w)),
+              f"warp_tiles {label}: two launches differ")
+        name = WARP_ENTRY[out_dtype]
+        readings[name] = {"path": label, **warp_reading(dev, name, feats, idx, wts, out_dtype, grid_w, err)}
+        del out
     if "sample_tiles_grouped" in store:
         maps, idx, wts = store["sample_tiles_grouped"]
         out = gc.sample_tiles_grouped(maps, idx, wts)
@@ -3003,9 +3066,378 @@ def export_phase(dev):
     return total, readings
 
 
+# -- multi-device: the ('data', 'view') mesh on torch.distributed ------------
+
+# run -> (config, fields replaced in memory, mesh (n_data, n_view), limit
+# of the first call's per-parameter gradient distance to one device's);
+# each a world of two gloo ranks on cuda:0 (NCCL refuses two ranks on one
+# card). Each limit is set from that run's own reading on an H100 (the
+# distance is deterministic: two runs read the same value), with the
+# headroom named beside it.
+MULTIDEVICE_RUNS = {
+    # the flagship at full width, 7 views, batch 2, data parallel; float32:
+    # a bf16 rounding anywhere would exceed the limit. Read 1.93e-4 (one
+    # device with its frames rotated: 2.46e-4); limit 1e-3, five times it
+    "b": (FLAGSHIP, {"runtime": {"use_amp": False}}, (2, 1), 1e-3),
+    # wildtrack_ms_max as shipped: 2 views, max over the views gathered
+    # from the view axis (rows 4 and 3). Read 6.40e-3 (frames rotated:
+    # 6.2e-4; why the mesh reads ten times its control is open); limit
+    # 2e-2, three times it
+    "c": (ROOT / "configs" / "wildtrack_ms_max.yaml", {}, (1, 2), 2e-2),
+    # the flagship with 6 views: the all_reduce after warp_tiles at a local
+    # V of 3. Read 6.04e-2 (frames rotated: 5.57e-2, the run's own
+    # spread); limit 0.12, twice it
+    "d": (FLAGSHIP, {"data": {"views": 6}}, (1, 2), 0.12),
+}
+MULTIDEVICE_STEPS = 3
+MULTIDEVICE_WORLD = 2
+
+
+def multidevice_config(run):
+    from vsta_tpu_torch.config import load_config
+
+    path, fields = MULTIDEVICE_RUNS[run][:2]
+    cfg = load_config(str(path))
+    for section, values in fields.items():
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **values)})
+    return cfg
+
+
+def multidevice_steps(cfg, dev, mesh=None, rotate=False, store=None):
+    """MULTIDEVICE_STEPS train-step calls of ``cfg`` from seed-0 weights on
+    this rank's part of seeded batches: losses, ms a call (host clock,
+    synchronised), the first call's gradients, the final state and the
+    launches, all on the CPU. ``rotate`` moves each batch's frames by one
+    place (the last first): the same function, summed in another order.
+    ``store``:
+    the model's kernels keep the inputs of their first call there
+    (:func:`capturing_warp`, :func:`capturing_kernels`)."""
+    from vsta_tpu_torch.parallel import shard_batch
+    from vsta_tpu_torch.training.state import batch_to_device, create_state, make_train_step
+
+    state = create_state(cfg, seed=0, device=dev, steps_per_epoch=100, mesh=mesh)
+    if store is not None:
+        state.model.warp, state.model.grouped = capturing_warp(store), capturing_kernels(store)
+    B = cfg.data.batch_size
+    batches = [train_batch(cfg, B, seed) for seed in range(MULTIDEVICE_STEPS)]
+    if rotate:
+        batches = [{k: np.roll(v, 1, axis=0) for k, v in b.items()} for b in batches]
+    grads, update = {}, state.tx.update
+
+    def spy(opt_state, model, g):
+        if not grads:
+            grads.update({k: v.detach().float().cpu() for k, v in g.items()})
+        return update(opt_state, model, g)
+
+    state.tx.update = spy
+    step = make_train_step(cfg)
+    counters = all_counters()
+    reset(counters)
+    losses, ms = [], []
+    for b in batches:
+        b = batch_to_device(b, dev) if mesh is None else shard_batch(b, mesh, dev)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        metrics = step(state, b)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["total_loss"]))
+    return {
+        "losses": losses, "ms": ms, "grads": grads, "launches": {c.__name__: c.launches for c in counters},
+        "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+    }
+
+
+def multidevice_worker(run, outdir) -> int:
+    """One rank of a MULTIDEVICE_RUNS world (``--multidevice-rank RUN
+    DIR``): gloo, chosen explicitly, on cuda:0."""
+    sys.path.insert(0, str(ROOT))
+    from vsta_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("cuda:0", backend="gloo")
+    cfg = multidevice_config(run)
+    mesh = make_mesh(*MULTIDEVICE_RUNS[run][2], batch_size=cfg.data.batch_size, views=cfg.data.views)
+    check(mesh.size == MULTIDEVICE_WORLD and mesh.member, f"run {run}: mesh {mesh}")
+    store = {}
+    out = multidevice_steps(cfg, dev, mesh, store=store)
+    torch.distributed.barrier()  # both ranks are done with the card
+    out["readings"] = {}
+    if mesh.rank == 0:  # the kernels at the shapes this rank gave them, each against its plain version
+        out["readings"] = captured_readings(dev, f"mesh {run} {mesh.n_data}x{mesh.n_view} rank 0", store)
+    store.clear()
+    torch.save(out, Path(outdir) / f"{run}-rank{mesh.rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def max_rel_grad_err(got, want):
+    """max over parameters of max|got - want| / max(max|want|, 1e-2 of the
+    largest max|want|): the floor keeps gradients that are 0 up to
+    rounding from dividing noise by noise, as :func:`grad_distance`."""
+    peaks = {k: float(w.abs().max()) for k, w in want.items()}
+    floor = 1e-2 * max(peaks.values())
+    return max(float((got[k] - w).abs().max()) / max(peaks[k], floor) for k, w in want.items())
+
+
+def encoder_split_control(cfg, dev, mesh_shape):
+    """The encoder's eval-mode forward on one device: a batch's B*V images
+    in one call against the ranks' parts of it (B / n_data frames by
+    V / n_view views), each part in a call of its own. The same weights
+    and the same function: only the image count of a call differs, and
+    with it the convolution algorithms cuDNN picks. Returns max|a - b| /
+    max|a| and the share of the elements that differ."""
+    from vsta_tpu_torch.training.state import create_state
+
+    model = create_state(cfg, seed=0, device=dev, steps_per_epoch=100).model.eval()
+    x = torch.as_tensor(train_batch(cfg, cfg.data.batch_size, 0)["images"], device=dev)
+    x = (x.float() - model.img_mean) * model.img_scale
+    (nd, nv), (B, V) = mesh_shape, x.shape[:2]
+
+    def enc(t):
+        e = model.encoder(t)
+        return (e[0] if isinstance(e, tuple) else e).float()
+
+    with torch.no_grad():
+        whole = enc(x)
+        parts = torch.cat([
+            torch.cat([enc(x[d * B // nd:(d + 1) * B // nd, v * V // nv:(v + 1) * V // nv]) for v in range(nv)], 1)
+            for d in range(nd)
+        ], 0)
+    diff = (whole - parts).abs()
+    out = float(diff.max() / whole.abs().max()), float((diff > 0).float().mean())
+    del model, x, whole, parts, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def worst_by_group(dists):
+    """The worst per-parameter distance among the encoder's parameters,
+    whose gradients sum over the images a rank holds, and among the
+    others, computed after the view reduction on every rank alike."""
+    enc = next(((d, k) for d, k in dists if k.startswith("encoder.")), (0.0, "-"))
+    rest = next(((d, k) for d, k in dists if not k.startswith("encoder.")), (0.0, "-"))
+    return f"encoder {enc[0]:.3e} ({enc[1]}), the rest {rest[0]:.3e} ({rest[1]})"
+
+
+def multidevice_run(dev, run, tmp):
+    """Run ``run`` on one device in this process, then on two gloo ranks
+    (subprocesses of this script), and hold the ranks to it. Returns the
+    ranks' launches, summed, and rank 0's readings of the kernels at the
+    shapes the mesh gave them."""
+    cfg = multidevice_config(run)
+    mesh_shape, limit = MULTIDEVICE_RUNS[run][2:]
+    ref = multidevice_steps(cfg, dev)
+    control = multidevice_steps(cfg, dev, rotate=True)
+    split = encoder_split_control(cfg, dev, mesh_shape)
+    torch.cuda.empty_cache()
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(MULTIDEVICE_WORLD)}
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--multidevice-rank", run, str(tmp)],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": "0"}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MULTIDEVICE_WORLD)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"[multidevice] run {run} rank {r} failed:\n{text[-4000:]}")
+    for ln in logs[0].splitlines():  # rank 0's kernels at the mesh's shapes
+        if ln.startswith(("[kernel]", "[grouped]")):
+            log(ln)
+    ranks = [torch.load(tmp / f"{run}-rank{r}.pt", weights_only=False) for r in range(MULTIDEVICE_WORLD)]
+    f32 = cfg.runtime.use_amp is False
+    errs = [max_rel_grad_err(r["grads"], ref["grads"]) for r in ranks]
+    dists = [grad_distance(r["grads"], ref["grads"]) for r in ranks]
+    same = all(torch.equal(ranks[0]["state"][k], r["state"][k]) for r in ranks[1:] for k in ranks[0]["state"])
+    control_dists = grad_distance(control["grads"], ref["grads"])
+    floor = (max_rel_grad_err(control["grads"], ref["grads"]), control_dists[0])
+
+    def norm(g):
+        return math.sqrt(sum(float(v.double().pow(2).sum()) for v in g.values()))
+
+    ratios = [norm(r["grads"]) / norm(ref["grads"]) for r in ranks]
+    log(f"[multidevice] {run}: {Path(MULTIDEVICE_RUNS[run][0]).name} {json.dumps(MULTIDEVICE_RUNS[run][1])}, "
+        f"batch {cfg.data.batch_size}, {cfg.data.views} views, {'float32' if f32 else 'bfloat16'}, mesh data "
+        f"{mesh_shape[0]} x view {mesh_shape[1]} (gloo, 2 ranks on cuda:0); losses one device "
+        f"{[round(x, 6) for x in ref['losses']]}, ranks {[[round(x, 6) for x in r['losses']] for r in ranks]}; "
+        f"max relative gradient error (first call, max|a-b| / max(max|b|, 1e-2 of the largest) over parameters) "
+        f"{[f'{e:.3e}' for e in errs]}, per-parameter distance worst {[f'{d[0][0]:.3e} ({d[0][1]})' for d in dists]} "
+        f"(limit {limit:.0e}; by group, rank 0: {worst_by_group(dists[0])}) (one device with its frames rotated: "
+        f"{floor[0]:.3e}, {floor[1][0]:.3e} ({floor[1][1]}); by group: {worst_by_group(control_dists)}; losses "
+        f"{[round(x, 6) for x in control['losses']]}); encoder forward on one device, all {cfg.data.batch_size} x "
+        f"{cfg.data.views} images in one call against the ranks' parts in calls of their own: max|a-b|/max|a| "
+        f"{split[0]:.3e}, elements that differ {split[1]:.4f}; global gradient norm over one device's "
+        f"{[f'{x:.6f}' for x in ratios]}; "
+        f"ms per step one device {[round(x, 2) for x in ref['ms']]}, ranks "
+        f"{[[round(x, 2) for x in r['ms']] for r in ranks]}; launches one device {json.dumps(ref['launches'])}, "
+        f"ranks {[json.dumps(r['launches']) for r in ranks]}; parameters bit-equal across ranks {same}; "
+        f"world's wall {wall:.1f}s")
+    check(same, f"[multidevice] {run}: parameters differ across ranks")
+    for r, d in zip(ranks, dists):
+        # the losses: float32 at rtol 2e-4, as JAX's multi-device tests;
+        # bfloat16 at 2e-3 (half a bf16 ulp). The first call's gradients
+        # within the run's limit (MULTIDEVICE_RUNS). The global norm within
+        # 1 % of one device's: the trap (gradients n_view times or 1/n_data
+        # of one device's) moves it by 50 % or more
+        np.testing.assert_allclose(r["losses"], ref["losses"], rtol=2e-4 if f32 else 2e-3)
+        check(d[0][0] <= limit, f"[multidevice] {run}: gradients {d[0][0]:.3e} ({d[0][1]}) > {limit:.3e}")
+        for name, n in ref["launches"].items():
+            check((n > 0) == (r["launches"][name] > 0), f"[multidevice] {run}: {name} launched {r['launches'][name]}")
+    check(all(abs(x - 1) <= 1e-2 for x in ratios), f"[multidevice] {run}: gradient norm ratios {ratios}")
+    launched = {k for k, n in ref["launches"].items() if n > 0 and k != "warp_tiles"}
+    if ref["launches"]["warp_tiles"]:
+        launched.add(WARP_ENTRY[torch.float32 if f32 else torch.bfloat16])
+    check(set(ranks[0]["readings"]) == launched,
+          f"[multidevice] {run}: kernels held at the mesh's shapes {sorted(ranks[0]['readings'])}, launched {launched}")
+    total = {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total, ranks[0]["readings"]
+
+
+def world_of_one(dev):
+    """(a): the flagship's train step x3 and an eval step through
+    ``make_mesh()`` with no process group (the 1x1 mesh), against
+    today's single-device path: bit-equal, with the same launches."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.parallel import make_mesh
+    from vsta_tpu_torch.training.state import create_state, make_eval_step
+
+    cfg = load_config(str(FLAGSHIP))
+    mesh = make_mesh()
+    check(mesh.shape == {"data": 1, "view": 1} and mesh.group is None, f"world of one: {mesh}")
+    out = {}
+    for label, m in (("single-device", None), ("1x1 mesh", mesh)):
+        res = multidevice_steps(cfg, dev, m)
+        state = create_state(cfg, res["state"], device=dev, steps_per_epoch=100, mesh=m)
+        counters = all_counters()
+        before = [c.launches for c in counters]
+        res["eval"] = {k: v.cpu() for k, v in make_eval_step(cfg)(state, train_batch(cfg, 2, 9)).items()}
+        res["eval_launches"] = [c.launches - b for c, b in zip(counters, before)]
+        out[label] = res
+    a, b = out["single-device"], out["1x1 mesh"]
+    same = (a["losses"] == b["losses"] and all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+            and all(torch.equal(a["eval"][k], b["eval"][k]) for k in a["eval"]))
+    log(f"[multidevice] a: world of one, flagship as it stands, 3 train steps and an eval step: losses "
+        f"{a['losses']} / {b['losses']}; ms per step {[round(x, 2) for x in a['ms']]} / "
+        f"{[round(x, 2) for x in b['ms']]}; launches {json.dumps(a['launches'])} / {json.dumps(b['launches'])}, "
+        f"eval {a['eval_launches']} / {b['eval_launches']}; bit-equal {same}")
+    check(same, "a world of one is not bit-equal to the single-device step")
+    check(a["launches"] == b["launches"] and a["eval_launches"] == b["eval_launches"], "world of one: launches differ")
+    total = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    total["warp_tiles"] += a["eval_launches"][0] + b["eval_launches"][0]
+    return total
+
+
+def multidevice_phase(dev):
+    """The mesh on the card: (a) a world of one through the new code; (b)
+    to (d) MULTIDEVICE_RUNS, each two gloo ranks on cuda:0 held to the same
+    run on one device. Two ranks on one card show that the sharded math
+    and the kernels a shard runs are right, not the speed of NCCL. Returns
+    the launches of the mesh runs by kernel, the warp split by its output
+    dtype ("resident" bf16, "windowed" f32), and rank 0's readings of
+    each run's kernels at the shapes the mesh gave them."""
+    import shutil
+    import tempfile
+
+    launches = {"resident": 0, "windowed": 0}
+
+    def add(part, f32):
+        for k, n in part.items():
+            if k == "warp_tiles":
+                launches["windowed" if f32 else "resident"] += n
+            else:
+                launches[k] = launches.get(k, 0) + n
+
+    add(world_of_one(dev), False)
+    readings = []
+    tmp = Path(tempfile.mkdtemp(prefix="vsta_mesh_"))
+    try:
+        for run in MULTIDEVICE_RUNS:
+            part, reading = multidevice_run(dev, run, tmp)
+            add(part, multidevice_config(run).runtime.use_amp is False)
+            readings.append(reading)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[multidevice] launches on the mesh runs (world of one and both ranks of b-d): {json.dumps(launches)}")
+    return launches, readings
+
+
+TF32_HEATMAP_BOUND = 5e-3  # |heatmap with cuDNN's TF32 - without|: ten times the 4.9e-4 an H100 read (PERF.md)
+
+
+def tf32_phase(dev):
+    """cuDNN's TF32 on the f32 convolutions: one f32 wildtrack_sanity
+    request (batch 16) and one flagship heatmap (batch 1; its head's
+    output convolutions run in f32) with ``cudnn.allow_tf32`` at its
+    default (True) and off, timed (CUDA events) and compared. The port's
+    entry points and CLIs leave it at its default; the heatmaps must stay
+    within TF32_HEATMAP_BOUND of the float32 ones."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.serving import build_serving_fn
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    for name, B in (("wildtrack_sanity.yaml", 16), ("wildtrack.yaml", 1)):
+        cfg = load_config(str(ROOT / "configs" / name))
+        serve = build_serving_fn(cfg, init_state_dict(cfg, seed=0), device=dev)
+        args = tuple(torch.as_tensor(a, device=dev) for a in serve_inputs(cfg, B))
+        res = {}
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                hm = serve(*args)["heatmap"].float()
+                res[tf32] = (hm, cuda_ms(serve, *args, warmup=2, iters=5))
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        diff = float((res[True][0] - res[False][0]).abs().max())
+        log(f"[tf32] {name} B={B} ({serve.model.dtype}): request {res[True][1]:.3f} ms with cuDNN TF32 (its default) "
+            f"against {res[False][1]:.3f} ms without; heatmap max |TF32 - f32| {diff:.3e} "
+            f"(max heatmap {float(res[False][0].max()):.3f})")
+        check(diff <= TF32_HEATMAP_BOUND, f"[tf32] {name}: TF32 moved the heatmap by {diff} > {TF32_HEATMAP_BOUND}")
+        del serve
+
+
+def overfit_phase(timeout=900):
+    """``python -m vsta_tpu_torch.overfit_check`` on the card: ResNet-18,
+    4 views at 216x384, batch 2, 40 epochs; it must reach F1 0.8."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="vsta_overfit_")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vsta_tpu_torch.overfit_check", "--work_dir", work],
+                       capture_output=True, text=True, timeout=timeout, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                       cwd=str(ROOT))
+    lines = [x for x in r.stdout.splitlines() if x.startswith("[overfit]") or "phase=eval" in x]
+    log(f"[overfit] exit {r.returncode} in {time.perf_counter() - t:.1f}s: " + " | ".join(lines[-6:]))
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    check(r.returncode == 0 and "[overfit] PASS" in r.stdout,
+          f"overfit_check did not reach F1 0.8:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    if "--multidevice-rank" in sys.argv:  # one rank of multidevice_phase's worlds
+        i = sys.argv.index("--multidevice-rank")
+        return multidevice_worker(sys.argv[i + 1], sys.argv[i + 2])
     sys.path.insert(0, str(ROOT))
     from vsta_tpu_torch import kernels
 
@@ -3082,26 +3514,36 @@ def main() -> int:
     t = time.perf_counter()
     determinism_phase(dev)
     log(f"[determinism] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    mesh, mesh_readings = multidevice_phase(dev)
+    log(f"[multidevice] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    tf32_phase(dev)
+    log(f"[tf32] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    overfit_phase()
+    log(f"[overfit] phase {time.perf_counter() - t:.1f}s")
     # launches on the model paths, each path counted from 0 over its own
     # run: flagship serving (both warp dispatches), training and the loop, deform
     # serving and training (ATTN_STRIDE 4 and 1), both families with
     # per-frame cameras, the max and attn fusions, the three ResNet configs
     # served and trained (and sanity with GroupNorm), the exported artifacts
-    # (counted at their capture: a replay goes through no Python wrapper). The ablation variants
+    # (counted at their capture: a replay goes through no Python wrapper), the mesh runs (a world of
+    # one and both ranks of each two-rank world). The ablation variants
     # are on no model path: their count is the attribution run's.
     paths = [train, loop, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train,
-             resnet_serve, resnet_train, export_launches]
+             resnet_serve, resnet_train, export_launches, mesh]
     on_paths = {k: sum(path.get(k, 0) for path in paths) for k in train}
     entries += [views_entry, ablation_entry]
     counts = {
         f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"] + loop["warp_tiles"]
-        + export_launches["warp_tiles"],
-        f"{WARP_TPU}:353": serve_launches["windowed"],
+        + export_launches["warp_tiles"] + mesh["resident"],
+        f"{WARP_TPU}:353": serve_launches["windowed"] + mesh["windowed"],
         **{e["replaces"]: on_paths[e["name"]] for e in entries if e["name"] in on_paths},
         ablation_entry["replaces"]: ablation_entry["launches"],
     }
-    # rows 4 and 3 at the shapes the ResNet paths gave them
-    for reading in serve_readings + train_readings:
+    # warp_tiles and rows 4 and 3 at the shapes the ResNet paths and the mesh runs gave them
+    for reading in serve_readings + train_readings + mesh_readings:
         for entry in entries:
             if entry["name"] in reading:
                 entry["other_shapes"].append(reading[entry["name"]])

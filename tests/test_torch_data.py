@@ -32,6 +32,9 @@ from vsta_tpu_torch.data import synthetic as tsyn
 from vsta_tpu_torch.data import transforms as ttf
 from vsta_tpu_torch.data import wildtrack as twt
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 TREE_HW = (108, 192)
 VIEWS = 3
 N_FRAMES = 5

@@ -12,6 +12,9 @@ from vsta_tpu.ops.decode import nms2d as j_nms2d
 from vsta_tpu_torch.ops.decode import decode_detections as t_decode
 from vsta_tpu_torch.ops.decode import nms2d as t_nms2d
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 BOUNDS = (-12.0, 12.0, -4.0, 4.0)
 
 

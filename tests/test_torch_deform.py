@@ -49,6 +49,9 @@ from vsta_tpu_torch.models.fusion import DeformableFusion, ring_offsets
 from vsta_tpu_torch.ops import grouped_cuda as gc
 from vsta_tpu_torch.training.state import create_state, make_train_step
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 B, V, H, W = 2, 3, 64, 96
 BOUNDS = (-12.0, 12.0, -4.0, 4.0)
 BEV = (25, 41)

@@ -24,6 +24,8 @@ from vsta_tpu_torch import config as tcfg
 from vsta_tpu_torch import export as texport
 from vsta_tpu_torch.convert import init_state_dict, quant_head_from_jax, state_dict_from_flax
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
 
 def tiny_raw(device_normalize=False):
     return {

@@ -33,6 +33,9 @@ from vsta_tpu_torch.ops import grouped_cuda as gc
 from vsta_tpu_torch.ops.warp_cuda import warp_tiles
 from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 B, V, H, W = 2, 3, 64, 96
 BOUNDS = (-12.0, 12.0, -4.0, 4.0)
 BEV = (16, 48)

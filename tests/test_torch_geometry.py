@@ -18,6 +18,9 @@ from vsta_tpu_torch import geometry as tgeo
 from vsta_tpu_torch.data.synthetic import make_ring_camera as t_ring
 from vsta_tpu_torch.ops.warp import precompute_warp_lut as t_lut
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 CONFIGS = sorted(Path(__file__).resolve().parent.parent.glob("configs/*.yaml"))
 BOUNDS = (-12.0, 12.0, -4.0, 4.0)
 

@@ -25,6 +25,9 @@ from vsta_tpu_torch.ops import grouped_cuda as gc
 from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps, gather_taps, pad_feat_br
 from vsta_tpu_torch.ops.warp_cuda import FusedWarpProj, fused_warp_proj, warp_tiles_ref
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 HF, WF = 6, 9
 P = (HF + 1) * (WF + 1)
 G, N = 3, 300

@@ -29,6 +29,9 @@ from vsta_tpu_torch.models import BEVNet
 from vsta_tpu_torch.ops import grouped_cuda as gc
 from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps, precompute_warp_lut
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 HF, WF = 6, 9
 G, N = 3, 300
 F32 = dict(atol=1e-5, rtol=1e-5)

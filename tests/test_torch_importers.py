@@ -33,6 +33,9 @@ from vsta_tpu_torch.models.encoders.pretrained import load_pretrained_backbone
 from vsta_tpu_torch.models.reference_import import _guess_resnet_variant, load_reference_weights
 from vsta_tpu_torch.training.state import create_state
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 B, V, H, W = 1, 2, 66, 98
 SPECS = {"resnet18": (False, (2, 2, 2, 2)), "resnet50": (True, (3, 4, 6, 3))}
 

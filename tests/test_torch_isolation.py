@@ -109,3 +109,42 @@ def test_clis_raise_without_a_card(cli, tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode != 0 and "no CUDA device" in res.stderr, res.stderr[-2000:]
+
+
+def test_parallel_package_and_tool_twins_are_covered():
+    """The mesh modules and the two tool twins are among the sources held
+    above: each imports neither JAX nor the JAX package."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py", "parallel/warp_shard.py",
+                "check_dataset.py", "overfit_check.py"):
+        assert f"vsta_tpu_torch/{rel}" in names, rel
+    assert {"vsta_tpu_torch.parallel", "vsta_tpu_torch.check_dataset", "vsta_tpu_torch.overfit_check"} <= set(
+        _port_modules()
+    )
+
+
+def test_mesh_entry_points_raise_without_a_card(monkeypatch):
+    """init_distributed asked for the CUDA device raises where there is
+    none; no process group is made, nothing falls back to the CPU."""
+    from vsta_tpu_torch.parallel import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ("cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_distributed(device)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed("cuda", backend="gloo")
+    assert not torch.distributed.is_initialized()
+
+
+def test_overfit_check_raises_without_a_card(tmp_path):
+    """``python -m vsta_tpu_torch.overfit_check`` runs on the CUDA device
+    unless asked for the CPU: here it exits non-zero."""
+    res = subprocess.run(
+        [sys.executable, "-m", "vsta_tpu_torch.overfit_check", "--epochs", "1", "--frames", "2", "--views", "2",
+         "--work_dir", str(tmp_path / "w")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode != 0 and "no CUDA device" in res.stderr, res.stderr[-2000:]

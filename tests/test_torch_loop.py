@@ -42,6 +42,9 @@ from vsta_tpu_torch.training import metrics as tmetrics
 from vsta_tpu_torch.training.checkpoint import CheckpointManager
 from vsta_tpu_torch.training.state import create_state, make_train_step
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 N_FRAMES = 10
 # no score of the two trained models' val heatmaps lies within 1e-4 of it
@@ -362,8 +365,9 @@ def test_telemetry_reads_no_device_on_the_cpu():
 
 
 def test_more_than_one_device_raises():
+    """A mesh larger than the world raises: one process is one device."""
     cfg = tcfg.from_dict(tiny_raw("unused", RUNTIME={"MESH_DATA": 2}))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    with pytest.raises(ValueError, match="a 2x1 mesh needs 2 ranks; the world has 1"):
         tloop.run_training(cfg, device="cpu")
 
 

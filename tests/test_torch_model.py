@@ -23,6 +23,9 @@ from vsta_tpu_torch.models.encoders.efficientnet import B0_STAGES, EfficientNetF
 from vsta_tpu_torch.models.encoders.encoder import ViewEncoder
 from vsta_tpu_torch.models.heads import BEVDetectorHead
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

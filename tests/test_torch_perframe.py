@@ -52,6 +52,9 @@ from vsta_tpu_torch.ops.warp_cuda import FusedWarpProj, fused_warp_proj, fused_w
 from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
 from vsta_tpu_torch.training.state import create_state, make_train_step
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 B, V, H, W = 2, 3, 64, 96
 BOUNDS = (-12.0, 12.0, -4.0, 4.0)
 BEV = (16, 48)

@@ -17,6 +17,8 @@ from vsta_tpu.ops import quant as jq
 from vsta_tpu_torch.convert import quant_head_from_jax
 from vsta_tpu_torch.ops import quant as tq
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
 
 def _i8(rng, shape):
     return rng.integers(-127, 128, shape).astype(np.int8)

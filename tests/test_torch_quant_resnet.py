@@ -20,6 +20,9 @@ from vsta_tpu_torch.models.encoders.encoder import ViewEncoder
 from vsta_tpu_torch.ops import quant as tq
 from vsta_tpu_torch.ops import quant_resnet as tqr
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 HW = (48, 64)
 
 

@@ -33,6 +33,9 @@ from vsta_tpu_torch.models.encoders.encoder import ViewEncoder, build_backbone
 from vsta_tpu_torch.models.encoders.resnet import ResNetFeatures, resnet_channels
 from vsta_tpu_torch.ops.resize import resize_bilinear
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 HW = (66, 98)  # 33x49 -> 17x25 -> 9x13 -> 5x7 -> 3x4: odd maps down the pyramid
 
 

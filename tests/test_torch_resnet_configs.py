@@ -35,6 +35,9 @@ from vsta_tpu_torch import config as tcfg
 from vsta_tpu_torch.convert import init_state_dict, state_dict_from_flax
 from vsta_tpu_torch.models import BEVNet
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 H, W = 66, 98
 CONFIGS = {
     "sanity": ("configs/wildtrack_sanity.yaml", {}),

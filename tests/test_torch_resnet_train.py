@@ -45,6 +45,9 @@ from vsta_tpu_torch import config as tcfg
 from vsta_tpu_torch.convert import batch_stats_from_flax, params_from_flax, state_dict_from_flax
 from vsta_tpu_torch.training.state import create_state, make_train_step
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 SPE = 2
 
 

@@ -20,6 +20,9 @@ from vsta_tpu_torch.models import BEVNet
 from vsta_tpu_torch.ops.warp_cuda import warp_tiles
 from vsta_tpu_torch.serving import build_serving_fn
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 RAW = {
     "DATA": {"BATCH_SIZE": 2, "IMG_SIZE": [3, 64, 96], "VIEWS": 3},

@@ -22,6 +22,9 @@ from vsta_tpu_torch.ops.warp_cuda import (
     warp_tiles_ref,
 )
 
+from test_torch_jax_cache import jax_reference_private_cache  # noqa: F401  (autouse: no shared cache)
+
+
 BOUNDS = (-12.0, 12.0, -6.0, 6.0)
 IMG, FEAT, BEV = (108, 192), (14, 24), (16, 32)
 N = BEV[0] * BEV[1]

@@ -76,6 +76,26 @@ class ModelConfig:
     # stride^2. 1 = full resolution.
     attn_stride: int = 4
 
+    @property
+    def bev_h(self) -> int:
+        return self.bev_size[0]
+
+    @property
+    def bev_w(self) -> int:
+        return self.bev_size[1]
+
+    @property
+    def res_x(self) -> float:
+        """Metres a BEV cell along x."""
+        b = self.bev_bounds
+        return (b[1] - b[0]) / float(self.bev_w)
+
+    @property
+    def res_y(self) -> float:
+        """Metres a BEV cell along y."""
+        b = self.bev_bounds
+        return (b[3] - b[2]) / float(self.bev_h)
+
 
 @dataclass(frozen=True)
 class TrainConfig:

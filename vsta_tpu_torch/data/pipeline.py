@@ -21,7 +21,7 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -176,7 +176,9 @@ class Prefetcher:
     tensors there (a CUDA device must exist). Every batch has
     ``batch_mask`` [B] bool: the last batch is right-padded by repeating its
     last sample unless ``drop_last``. ``plan``: explicit (chunk, n_real)
-    batches (``multi_clip_plan``). ``wait_s`` is the time the consumer
+    batches (``multi_clip_plan``). ``shard``: takes each collated host
+    batch to this rank's part before the copy (``Mesh.slice_batch``: every
+    rank reads the same batch and keeps its slice). ``wait_s`` is the time the consumer
     spent waiting on the queue in the latest pass, over ``n_yielded``
     batches.
     """
@@ -195,6 +197,7 @@ class Prefetcher:
         device: Optional[str | torch.device] = None,
         plan: Optional[List[Tuple[List[int], int]]] = None,
         h2d_streams: int = 1,
+        shard: Optional[Callable[[Batch], Batch]] = None,
     ):
         self.dataset = dataset
         self.indices = list(indices)
@@ -205,6 +208,7 @@ class Prefetcher:
         self.seed = seed
         self.drop_last = drop_last
         self.put = None if device is None else DevicePut(device, h2d_streams)
+        self.shard = shard
         self._epoch = 0
         self.wait_s = 0.0
         self.n_yielded = 0
@@ -255,7 +259,7 @@ class Prefetcher:
         self.wait_s, self.n_yielded = 0.0, 0
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
-        put = self.put
+        put, shard = self.put, self.shard
         consumer = torch.cuda.current_stream(put.device) if put is not None and put.cuda else None
 
         def _put(item) -> bool:
@@ -283,6 +287,8 @@ class Prefetcher:
                         mask = np.zeros(len(chunk), bool)
                         mask[:n_real] = True
                         batch["batch_mask"] = mask
+                        if shard is not None:
+                            batch = shard(batch)
                         item = (batch, None) if put is None else put(batch, consumer)
                         if not _put(item):
                             return

@@ -6,7 +6,10 @@
 Loads a checkpoint of this package (``training/checkpoint.py``), scores the
 split (the 400/100 or 80/20 protocol of ``data/pipeline.split_train_val``)
 and prints precision, recall, F1, MLE, MODA and MODP as one JSON block,
-NaN as null. Runs on the CUDA device unless ``RUNTIME.DEVICE`` is ``cpu``.
+NaN as null. Runs on the CUDA device unless ``RUNTIME.DEVICE`` is ``cpu``,
+over the mesh of ``RUNTIME.MESH_DATA`` x ``MESH_VIEW`` (under torchrun:
+each rank scores its slice, the detections are gathered over 'data', and
+rank 0 prints).
 ``--quantize-head`` / ``--quantize-encoder`` score the int8 serving paths,
 calibrated on two batches of the train split (``export.calibrate``).
 """
@@ -21,7 +24,8 @@ from .data.pipeline import Prefetcher, split_train_val
 from .data.wildtrack import WildtrackDataset
 from .export import calibrate, train_split_batches
 from .training.checkpoint import CheckpointManager
-from .training.loop import one_device
+from .parallel.mesh import init_distributed, quiet_unless_main
+from .training.loop import config_mesh, global_batch
 from .training.metrics import DetectionMetrics
 from .training.state import create_state, make_eval_step
 from .utils.platform import runtime_device
@@ -40,14 +44,18 @@ def main() -> None:
     args = parser.parse_args()
 
     cfg = load_config(args.config)
-    dev = runtime_device(cfg.runtime.device)
-    one_device(cfg)
+    dev = init_distributed(runtime_device(cfg.runtime.device))
+    quiet_unless_main()
+    mesh = config_mesh(cfg)
+    if not mesh.member:
+        return
     ds = WildtrackDataset(cfg, train=False)
     idx_train, idx_val = split_train_val(len(ds), cfg.train.seed)
     indices = {"val": idx_val, "train": idx_train, "all": list(range(len(ds)))}[args.split]
-    dl = Prefetcher(ds, indices, cfg.data.batch_size, shuffle=False, num_workers=cfg.runtime.num_workers, device=dev)
+    dl = Prefetcher(ds, indices, cfg.data.batch_size, shuffle=False, num_workers=cfg.runtime.num_workers, device=dev,
+                    shard=mesh.slice_batch if mesh.size > 1 else None)
 
-    state = create_state(cfg, device=dev, steps_per_epoch=1)
+    state = create_state(cfg, device=dev, steps_per_epoch=1, mesh=mesh)
     ckpt_path = Path(args.checkpoint)
     state, epoch, f1 = CheckpointManager(str(ckpt_path.parent)).restore(ckpt_path.name, state)
     print(f"[ckpt] loaded {args.checkpoint} (epoch {epoch}, f1={f1:.3f})")
@@ -62,13 +70,14 @@ def main() -> None:
     acc = DetectionMetrics(match_dist=cfg.eval.nms_dist_m)
     for batch in dl:
         out = eval_step(state, batch)
+        gt = global_batch(mesh, batch, ("boxes_world", "num_boxes", "batch_mask"))
         acc.update_batch(
             out["boxes"].cpu().numpy(),
             out["scores"].cpu().numpy(),
             out["valid"].cpu().numpy(),
-            batch["boxes_world"].cpu().numpy(),
-            batch["num_boxes"].cpu().numpy(),
-            batch["batch_mask"].cpu().numpy(),
+            gt["boxes_world"],
+            gt["num_boxes"],
+            gt["batch_mask"],
         )
     # a zero-frame eval gives NaN metrics, which are not JSON: null
     clean = {k: (None if math.isnan(v) else round(float(v), 4)) for k, v in acc.summary().items()}

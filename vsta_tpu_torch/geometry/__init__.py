@@ -1,6 +1,14 @@
-from .homography import compute_homography, invert_homography, project_points, rodrigues
+from .homography import (
+    compute_homography,
+    geom_consistency_error,
+    invert_homography,
+    pixel_to_world,
+    project_points,
+    rodrigues,
+)
 from .bev import (
     bev_indices_to_meters,
+    bev_sample_coords,
     bev_sample_coords_with_depth,
     ground_grid,
     meters_to_bev_indices,
@@ -11,8 +19,11 @@ __all__ = [
     "compute_homography",
     "invert_homography",
     "project_points",
+    "pixel_to_world",
+    "geom_consistency_error",
     "ground_grid",
     "meters_to_bev_indices",
     "bev_indices_to_meters",
+    "bev_sample_coords",
     "bev_sample_coords_with_depth",
 ]

@@ -57,6 +57,18 @@ def bev_indices_to_meters(
     return torch.stack([x, y], dim=-1)
 
 
+def bev_sample_coords(
+    K: torch.Tensor,
+    Rt: torch.Tensor,
+    img_size: Tuple[int, int],
+    feat_size: Tuple[int, int],
+    grid: torch.Tensor,
+) -> torch.Tensor:
+    """Feature-space sample coordinates (..., Hb, Wb, 2) of every BEV
+    cell: :func:`bev_sample_coords_with_depth` without the depth."""
+    return bev_sample_coords_with_depth(K, Rt, img_size, feat_size, grid)[0]
+
+
 def bev_sample_coords_with_depth(
     K: torch.Tensor,
     Rt: torch.Tensor,

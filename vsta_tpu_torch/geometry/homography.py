@@ -62,3 +62,35 @@ def project_points(H: torch.Tensor, pts: torch.Tensor, w_eps: float = 1e-6):
     w = uvw[..., 2]
     w_safe = torch.where(w.abs() < w_eps, torch.ones_like(w), w)
     return uvw[..., :2] / w_safe[..., None], w
+
+
+def pixel_to_world(uv: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor):
+    """Back-project image pixels (..., N, 2) onto the ground plane.
+
+    Returns ((..., N, 2) world xy, (..., N) valid): invalid where the
+    homogeneous scale is not finite or |w| < 1e-8 (the horizon), whose xy
+    is divided by 1 instead.
+    """
+    H_i2w = invert_homography(compute_homography(K, Rt))
+    pts = torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
+    xyw = torch.einsum("...ij,...nj->...ni", H_i2w, pts)
+    w = xyw[..., 2]
+    valid = torch.isfinite(w) & (w.abs() >= 1e-8)
+    w_safe = torch.where(valid, w, torch.ones_like(w))
+    return xyw[..., :2] / w_safe[..., None], valid
+
+
+def geom_consistency_error(K: torch.Tensor, Rt: torch.Tensor, points_xy: torch.Tensor) -> torch.Tensor:
+    """Round trip world -> image -> world of ground points: the mean
+    distance in metres, over the points in front of the camera that come
+    back finite. A calibration check (``python -m
+    vsta_tpu_torch.check_dataset``).
+
+    K: (..., 3, 3); Rt: (..., 4, 4); points_xy: (N, 2). Returns (...).
+    """
+    pts_h = torch.cat([points_xy, torch.ones_like(points_xy[..., :1])], dim=-1)
+    uv, w_fwd = project_points(compute_homography(K, Rt), pts_h)
+    xy_back, valid = pixel_to_world(uv, K, Rt)
+    vf = (valid & (w_fwd > 1e-6)).to(points_xy.dtype)
+    err = torch.linalg.norm(xy_back - points_xy, dim=-1)
+    return (err * vf).sum(dim=-1) / torch.clamp(vf.sum(dim=-1), min=1.0)

@@ -10,7 +10,10 @@ tracker (``tracking/``) over the decoded frames and adds "tracks";
 ``--clips N`` (with ``--track``) runs N temporal windows as the N rows of
 each batch, one online tracker a clip, and records each frame's "clip".
 ``--save_vis`` writes the first batch's BEV heatmap. Runs on the CUDA
-device unless ``RUNTIME.DEVICE`` is ``cpu``. ``--quantize-head`` /
+device unless ``RUNTIME.DEVICE`` is ``cpu``, over the mesh of
+``RUNTIME.MESH_DATA`` x ``MESH_VIEW`` (under torchrun: each rank runs its
+slice, the detections are gathered over 'data', and rank 0 tracks and
+writes). ``--quantize-head`` /
 ``--quantize-encoder`` run the int8 serving paths, calibrated on two
 batches of the train split (``export.calibrate``).
 """
@@ -24,7 +27,8 @@ from .data.wildtrack import WildtrackDataset
 from .export import calibrate, train_split_batches
 from .tracking import SortTracker
 from .training.checkpoint import CheckpointManager
-from .training.loop import one_device
+from .parallel.mesh import init_distributed, quiet_unless_main
+from .training.loop import config_mesh, global_batch
 from .training.state import create_state, make_eval_step
 from .utils.platform import runtime_device
 from .utils.visualization import save_bev_heatmap, save_predictions_json
@@ -73,16 +77,19 @@ def main() -> None:
         parser.error("--clips requires --track")
 
     cfg = load_config(args.config)
-    dev = runtime_device(cfg.runtime.device)
-    one_device(cfg)
+    dev = init_distributed(runtime_device(cfg.runtime.device))
+    quiet_unless_main()
     ds = WildtrackDataset(cfg, train=False)
     # multi-clip mode: row c of every batch is clip c's next frame
     batch_size = args.clips if args.clips > 1 else cfg.data.batch_size
+    mesh = config_mesh(cfg, batch_size)
+    if not mesh.member:
+        return
     plan = multi_clip_plan(range(len(ds)), args.clips) if args.clips > 1 else None
     dl = Prefetcher(ds, range(len(ds)), batch_size, shuffle=False, num_workers=cfg.runtime.num_workers,
-                    device=dev, plan=plan)
+                    device=dev, plan=plan, shard=mesh.slice_batch if mesh.size > 1 else None)
 
-    state = create_state(cfg, device=dev, steps_per_epoch=1)
+    state = create_state(cfg, device=dev, steps_per_epoch=1, mesh=mesh)
     ckpt_path = Path(args.checkpoint)
     state, epoch, f1 = CheckpointManager(str(ckpt_path.parent)).restore(ckpt_path.name, state)
     print(f"[ckpt] loaded {args.checkpoint} (epoch {epoch}, f1={f1:.3f})")
@@ -105,8 +112,10 @@ def main() -> None:
     for batch in dl:
         out = eval_step(state, batch)
         boxes, scores, valid = (out[k].cpu().numpy() for k in ("boxes", "scores", "valid"))
-        frame_idx = batch["frame_idx"].cpu().numpy().tolist()
-        batch_mask = batch["batch_mask"].cpu().numpy()
+        g = global_batch(mesh, batch, ("frame_idx", "batch_mask"))
+        frame_idx, batch_mask = g["frame_idx"].tolist(), g["batch_mask"]
+        if not mesh.is_main:
+            continue
         tracks = None
         if trackers is not None:
             tracks = track_rows(trackers, boxes, scores, valid, batch_mask, per_clip=args.clips > 1)

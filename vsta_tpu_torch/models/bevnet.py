@@ -35,6 +35,17 @@ per-frame cameras (every frame warps under its own ``K``, ``Rt``):
 Inputs and outputs are channels-last, as in the JAX package.
 ``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and cuts the
 gradient at the encoder's output.
+
+On a sharded :class:`~vsta_tpu_torch.parallel.mesh.Mesh` (``mesh=``) each
+rank takes its slice of the batch and of the views. The model computes
+what it computes on one device for the global batch: concat under the
+fused warps sums the views over the mesh
+(:func:`~vsta_tpu_torch.parallel.warp_shard.warp_proj_sharded`); every
+other reduction over the views (the unfused fusions, the deformable
+fusion's softmax over (view, point) and its value maps) runs on the
+views gathered from the view axis, bit for bit; train-mode BatchNorm
+takes its statistics over the whole mesh; static cameras take the global
+frame 0's calibration.
 """
 
 from __future__ import annotations
@@ -51,9 +62,13 @@ from ..geometry import bev_sample_coords_with_depth, ground_grid
 from ..ops.grouped_cuda import KERNELS, warp_views
 from ..ops.quant import apply_quant_head
 from ..ops.resize import resize_bilinear
-from ..ops.warp_cuda import FusedWarpProj, fused_warp_proj, fused_warp_proj_cuda, warp_tiles
+from ..ops.warp_cuda import fused_warp_proj, warp_proj, warp_tiles
 from ..ops.warp_views_cuda import warp_views_sum
+from ..parallel.collectives import gather
+from ..parallel.mesh import ACTIVE, get_active_mesh
+from ..parallel.warp_shard import warp_proj_sharded
 from .encoders.encoder import ViewEncoder
+from .encoders.norm import BatchNorm
 from .fusion import AttentionFusion, DeformableFusion, Dense, simple_fusion
 from .heads import BEVDetectorHead
 
@@ -82,7 +97,8 @@ def positional_encoding(
 
 
 class BEVNet(nn.Module):
-    """Construct with :meth:`from_config`; ``forward(images, K, Rt)``."""
+    """Construct with :meth:`from_config`; ``forward(images, K, Rt)``.
+    ``mesh``: the mesh the model runs under (None: one device)."""
 
     def __init__(
         self,
@@ -105,6 +121,7 @@ class BEVNet(nn.Module):
         warp_impl: str = "pallas",
         static_cameras: bool = True,
         norm: str = "batch",
+        mesh=None,
     ):
         super().__init__()
         if fusion not in FUSIONS:
@@ -112,6 +129,11 @@ class BEVNet(nn.Module):
         if warp_impl not in WARP_IMPLS:
             raise ValueError(f"unknown warp_impl {warp_impl!r}: one of {WARP_IMPLS}")
         self.views, self.bev_size, self.bev_bounds = views, bev_size, bev_bounds
+        self.mesh = mesh
+        # the collectives run only on a mesh of more than one rank; a 1x1
+        # mesh is the single-device model
+        self.sharded = mesh is not None and mesh.size > 1
+        self.local_views = mesh.local_views(views) if self.sharded else views
         self.freeze_backbone = freeze_backbone
         self.dtype = dtype
         self.fusion, self.attn_stride = fusion, max(1, attn_stride)
@@ -152,9 +174,17 @@ class BEVNet(nn.Module):
         mean = torch.as_tensor(IMAGENET_MEAN) * 255.0
         self.register_buffer("img_mean", mean, persistent=False)
         self.register_buffer("img_scale", 1.0 / (torch.as_tensor(IMAGENET_STD) * 255.0), persistent=False)
+        if self.sharded:  # train-mode statistics over the whole mesh
+            for mod in self.encoder.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.mesh = mesh
 
     @classmethod
-    def from_config(cls, cfg: Config) -> "BEVNet":
+    def from_config(cls, cfg: Config, mesh=None) -> "BEVNet":
+        """``mesh``: the mesh to run under (``parallel.make_mesh``), None
+        for one device, or ``parallel.ACTIVE`` for the registered one."""
+        if mesh is ACTIVE:
+            mesh = get_active_mesh()
         m = cfg.model
         return cls(
             views=cfg.data.views,
@@ -176,6 +206,7 @@ class BEVNet(nn.Module):
             warp_impl=m.warp_impl,
             static_cameras=m.static_cameras,
             norm=m.norm,
+            mesh=mesh,
         )
 
     def train(self, mode: bool = True) -> "BEVNet":
@@ -192,7 +223,8 @@ class BEVNet(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """images [B, V, H, W, 3] uint8 or float; K [B, V, 3, 3]; Rt
         [B, V, 4, 4] world->camera (with static cameras frame 0's calibration
-        serves the batch). Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32;
+        serves the batch; on a sharded mesh, this rank's frames and views).
+        Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32;
         with ``return_per_view`` the unfused fusions add every view's BEV map,
         'bev_per_view' [B, V, Hb, Wb, C], as the JAX package does.
         ``quant_head`` / ``quant_encoder``: int8 serving trees
@@ -200,8 +232,8 @@ class BEVNet(nn.Module):
         on the model's device; that stage then runs in int8 in place of its
         float parameters (serving only)."""
         B, V, H, W, _ = images.shape
-        if V != self.views:
-            raise ValueError(f"model built for {self.views} views, got {V}")
+        if V != self.local_views:
+            raise ValueError(f"model built for {self.local_views} views a rank, got {V}")
         Hb, Wb = self.bev_size
         dev = images.device
         if images.dtype == torch.uint8:
@@ -227,7 +259,10 @@ class BEVNet(nn.Module):
         _, _, Hf, Wf, _ = feats.shape
         grid = ground_grid(Hb, Wb, self.bev_bounds, device=dev)
         if self.static_cameras:  # [V, Hb, Wb, ...]: one calibration for the batch
-            coords, depth_w = bev_sample_coords_with_depth(K[0], Rt[0], (H, W), (Hf, Wf), grid)
+            K0, Rt0 = K[0], Rt[0]
+            if self.sharded:  # the global frame 0's, from the first data rank
+                K0, Rt0 = gather(K[:1], self.mesh, "data", 0)[0], gather(Rt[:1], self.mesh, "data", 0)[0]
+            coords, depth_w = bev_sample_coords_with_depth(K0, Rt0, (H, W), (Hf, Wf), grid)
         else:  # [B, V, Hb, Wb, ...]
             coords, depth_w = bev_sample_coords_with_depth(K, Rt, (H, W), (Hf, Wf), grid)
         pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
@@ -240,6 +275,8 @@ class BEVNet(nn.Module):
             bev_main = self._concat(feats, enc_pk, enc_pb, coords)
         else:
             per_view = self.per_view(feats, coords)
+            if self.sharded:  # every view's map, for the reductions over views
+                per_view = gather(per_view, self.mesh, "view", 1)
             bev_main = self.fuse_views(per_view)
         bev_feat = torch.cat([bev_main, pos.to(bev_main.dtype)], dim=-1)
         if quant_head is not None:
@@ -255,12 +292,21 @@ class BEVNet(nn.Module):
         """The warped-sum query plus the deformable fusion's residual."""
         query = self.warped_query(feats, coords)
         q_in = torch.cat([query, pos.to(query.dtype)], dim=-1)
+        if self.sharded:  # the softmax over (view, point) and the value maps see every view
+            vdim = coords.ndim - 4
+            feats = gather(feats, self.mesh, "view", 1)
+            coords, depth_w = gather(coords, self.mesh, "view", vdim), gather(depth_w, self.mesh, "view", vdim)
         return query + self.attention_residual(feats, coords, depth_w, q_in)
 
     def warped_query(self, feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         """feats [B, V, Hf, Wf, C], coords [V, Hb, Wb, 2] or
         [B, V, Hb, Wb, 2] -> the views' warped, projected sum [B, Hb, Wb, C_out], through the grouped
         sampler in serving and training alike."""
+        if self.sharded:
+            return warp_proj_sharded(
+                feats, coords, self.query_proj, self.query_proj_bias, self.mesh, impl="fused",
+                compute_dtype=self.dtype, grouped=self.grouped,
+            )
         return fused_warp_proj(
             feats, coords, self.query_proj, self.query_proj_bias, self.dtype, grouped=self.grouped
         )
@@ -298,14 +344,14 @@ class BEVNet(nn.Module):
         kernel = torch.cat([composite, pre_bias[:, None, :]], dim=1)
         ones = torch.ones(feats.shape[:-1] + (1,), dtype=feats.dtype, device=dev)
         feats = torch.cat([feats, ones], dim=-1)
-        if self.warp_impl == "fused":
-            return fused_warp_proj(feats, coords, kernel, self.view_proj_bias, self.dtype, grouped=self.grouped)
-        if torch.is_grad_enabled():
-            return FusedWarpProj.apply(
-                feats, coords, kernel, self.view_proj_bias, self.dtype, self.warp, self.grouped, self.views_sum
+        if self.sharded:
+            return warp_proj_sharded(
+                feats, coords, kernel, self.view_proj_bias, self.mesh, impl=self.warp_impl,
+                compute_dtype=self.dtype, warp=self.warp, grouped=self.grouped, views_sum=self.views_sum,
             )
-        return fused_warp_proj_cuda(
-            feats, coords, kernel, self.view_proj_bias, self.dtype, warp=self.warp, views_sum=self.views_sum
+        return warp_proj(
+            feats, coords, kernel, self.view_proj_bias, self.dtype, impl=self.warp_impl, warp=self.warp,
+            grouped=self.grouped, views_sum=self.views_sum,
         )
 
     def per_view(self, feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

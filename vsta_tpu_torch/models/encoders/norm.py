@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.collectives import all_reduce_sum
+
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 GN_GROUPS = 32
 
@@ -24,7 +26,16 @@ class BatchNorm(nn.BatchNorm2d):
     ``max(E[x^2] - mean^2, 0)`` in f32 as flax's ``_compute_stats``, and
     moves the running statistics by ``0.9 * running + 0.1 * batch``.
     (``F.batch_norm(training=True)`` would store the unbiased variance.)
+
+    ``mesh`` (set by a sharded ``BEVNet``): in training the statistics
+    cover the whole mesh, as JAX's jit computes them over the sharded
+    B*V images: one differentiable all-reduce of the f32 sums of x and
+    x^2, over a count of the local count times the mesh's ranks (every
+    rank holds as many images). The running statistics come out equal on
+    every rank.
     """
+
+    mesh = None
 
     def __init__(self, ch: int, eps: float):
         super().__init__(ch, eps=eps)
@@ -36,8 +47,13 @@ class BatchNorm(nn.BatchNorm2d):
                 False, 0.0, self.eps,
             ).to(x.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.mesh is None:
+            mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            count = xf.numel() // xf.shape[1] * self.mesh.size
+            sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]), self.mesh, "mesh")
+            mean, sq = sums[0] / count, sums[1] / count
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = BN_MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -74,6 +74,8 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.vsta_decode_resize_u8.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_ubyte),
         ]
+        lib.vsta_image_size.restype = ctypes.c_int
+        lib.vsta_image_size.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         lib.vsta_decode_resize_norm.restype = ctypes.c_int
         lib.vsta_decode_resize_norm.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
@@ -117,3 +119,14 @@ def decode_resize_norm(
     )
     return out if rc == 0 else None
 
+
+
+def image_size(path: str) -> Optional[Tuple[int, int]]:
+    """(H, W) of a PNG/JPEG file; None when the codec is unavailable or
+    cannot decode it."""
+    lib = _load()
+    if lib is None:
+        return None
+    h, w = ctypes.c_int(), ctypes.c_int()
+    rc = lib.vsta_image_size(path.encode(), ctypes.byref(h), ctypes.byref(w))
+    return (h.value, w.value) if rc == 0 else None

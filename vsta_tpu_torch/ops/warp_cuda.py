@@ -352,3 +352,29 @@ class FusedWarpProj(torch.autograd.Function):
             grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
         df, dk, db = (next(grads) if t is not None and t.requires_grad else None for t in leaves)
         return df, None, dk, db, None, None, None, None
+
+
+def warp_proj(
+    feats: torch.Tensor,
+    coords: torch.Tensor,
+    proj_kernel: torch.Tensor,
+    proj_bias: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+    *,
+    impl: str = "pallas",
+    warp: Callable = warp_tiles,
+    grouped: GroupedKernels = KERNELS,
+    views_sum: Callable = warp_views_sum,
+) -> torch.Tensor:
+    """The warp + concat fusion + 1x1 projection by ``impl``: 'pallas'
+    through the warp kernels (:func:`fused_warp_proj_cuda`; with autograd
+    on, :class:`FusedWarpProj`), 'fused' through the differentiable
+    grouped-sampler warp (:func:`fused_warp_proj`). The one dispatch of
+    the model's concat path and of its sharded twin."""
+    if impl == "fused":
+        return fused_warp_proj(feats, coords, proj_kernel, proj_bias, compute_dtype, grouped=grouped)
+    if impl != "pallas":
+        raise ValueError(f"unknown warp impl {impl!r}: pallas or fused")
+    if torch.is_grad_enabled():
+        return FusedWarpProj.apply(feats, coords, proj_kernel, proj_bias, compute_dtype, warp, grouped, views_sum)
+    return fused_warp_proj_cuda(feats, coords, proj_kernel, proj_bias, compute_dtype, warp=warp, views_sum=views_sum)

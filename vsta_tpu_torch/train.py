@@ -6,12 +6,18 @@
 Runs on the CUDA device unless ``RUNTIME.DEVICE`` is ``cpu``; without a
 CUDA device any other value raises. ``--profile N`` writes a
 ``torch.profiler`` trace of the first N train steps to SAVE_DIR/profile.
+
+Multi-device: ``torchrun --nproc_per_node N -m vsta_tpu_torch.train
+--config C`` with ``RUNTIME.MESH_DATA`` / ``MESH_VIEW`` set in C (NCCL,
+one card a rank; with ``RUNTIME.DEVICE: cpu``, gloo); rank 0 prints.
 """
 
 import argparse
 
 from .config import load_config
+from .parallel.mesh import init_distributed, quiet_unless_main
 from .training.loop import run_training
+from .utils.platform import runtime_device
 
 
 def main() -> None:
@@ -26,8 +32,11 @@ def main() -> None:
     )
     args = parser.parse_args()
     cfg = load_config(args.config)
+    dev = init_distributed(runtime_device(cfg.runtime.device))
+    quiet_unless_main()
     metrics = run_training(
-        cfg, work_dir=args.work_dir, save_vis=args.save_vis, resume=args.resume, profile_steps=args.profile
+        cfg, work_dir=args.work_dir, save_vis=args.save_vis, resume=args.resume, profile_steps=args.profile,
+        device=dev,
     )
     print("[done]", {k: round(v, 4) for k, v in metrics.items()})
 

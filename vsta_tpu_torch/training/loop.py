@@ -7,9 +7,17 @@ on the device and fetched every 10 steps -> eval every ``EVAL.INTERVAL``
 (``make_eval_step`` + :class:`DetectionMetrics`) -> ``last`` / ``best``
 checkpoints, the memory-triggered one, patience -> learning curves.
 
-One device runs it: ``device`` when given, else ``RUNTIME.DEVICE``
-(``cpu``, or the CUDA device for any other value). A ``RUNTIME.MESH_DATA``
-or ``MESH_VIEW`` above 1 raises. On ``resume`` the Prefetchers are new, so
+It runs on ``device`` when given, else on ``RUNTIME.DEVICE`` (``cpu``,
+or the CUDA device for any other value), over the ('data', 'view') mesh
+of ``RUNTIME.MESH_DATA`` x ``MESH_VIEW`` (``parallel.make_mesh``, clamped
+to the batch and the views; one process is the 1x1 mesh). Under torchrun
+(``torchrun --nproc_per_node N -m vsta_tpu_torch.train ...``) each rank
+reads the same batches, keeps its slice and runs the sharded step; the
+eval's detections and ground truth are gathered over 'data', so every
+rank scores the same frames and takes the same decisions; rank 0 alone
+writes the checkpoints, ``scalars.jsonl``, ``metrics.jsonl``, the
+figures and the trace. A rank the mesh leaves out returns at once. On
+``resume`` the Prefetchers are new, so
 the resumed epoch shuffles and jitters as epoch 0 did: the reference's
 behaviour, kept.
 
@@ -31,7 +39,8 @@ import torch
 from ..config import Config
 from ..data.pipeline import Prefetcher, split_train_val
 from ..data.wildtrack import WildtrackDataset
-from ..serving import resolve_device
+from ..parallel.collectives import gather
+from ..parallel.mesh import init_distributed, make_mesh
 from ..utils.logging import MetricWriter, ScalarLogger
 from ..utils.platform import runtime_device
 from ..utils.telemetry import host_stats, max_device_memory_percent
@@ -41,13 +50,26 @@ from .metrics import DetectionMetrics
 from .state import create_state, make_eval_step, make_train_step
 
 
-def one_device(cfg: Config) -> None:
-    """Raise where the config asks for more than one device."""
-    if cfg.runtime.mesh_data > 1 or cfg.runtime.mesh_view > 1:
-        raise NotImplementedError(
-            f"RUNTIME.MESH_DATA={cfg.runtime.mesh_data} / MESH_VIEW={cfg.runtime.mesh_view}: the port "
-            "runs on one device; multi-device is ROADMAP Queue 1 item 7, 'Multi-device'"
-        )
+def config_mesh(cfg: Config, batch_size: Optional[int] = None):
+    """The mesh ``RUNTIME.MESH_DATA`` x ``MESH_VIEW`` asks for, clamped to
+    the batch and the views, as the JAX entry points build it."""
+    return make_mesh(
+        cfg.runtime.mesh_data, cfg.runtime.mesh_view,
+        batch_size=cfg.data.batch_size if batch_size is None else batch_size, views=cfg.data.views,
+    )
+
+
+def global_batch(mesh, batch: Mapping[str, torch.Tensor], keys) -> Dict[str, np.ndarray]:
+    """``keys`` of this rank's batch gathered over 'data', as numpy: the
+    global batch's, on every rank."""
+    return {k: gather(batch[k], mesh, "data", 0).cpu().numpy() for k in keys}
+
+
+class _Quiet:
+    """Stands for the writers on a rank other than 0: every call does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
 
 
 def _first_batch(cfg: Config, batch: Mapping[str, torch.Tensor]) -> None:
@@ -90,8 +112,12 @@ def run_training(
     """Train BEVNet on Wildtrack(-format) data; returns the final metrics.
     ``state_dict``: the initial weights (``init_state_dict(cfg,
     TRAIN.SEED)`` when None)."""
-    dev = runtime_device(cfg.runtime.device) if device is None else resolve_device(device)
-    one_device(cfg)
+    dev = init_distributed(runtime_device(cfg.runtime.device) if device is None else device)
+    mesh = config_mesh(cfg)
+    if not mesh.member:
+        return {}
+    print(f"[mesh] data {mesh.n_data} x view {mesh.n_view} on {mesh.size} device(s)")
+    main = mesh.is_main
     work_dir = Path(work_dir)
     save_dir = work_dir / cfg.runtime.save_dir
     out_dir = work_dir / cfg.runtime.output_dir
@@ -116,13 +142,17 @@ def run_training(
     print(f"[device] {dev} ({name})")
 
     B, workers = cfg.data.batch_size, cfg.runtime.num_workers
+    shard = mesh.slice_batch if mesh.size > 1 else None
     dl_train = Prefetcher(
-        train_ds, idx_train, B, shuffle=True, num_workers=workers, seed=cfg.train.seed, drop_last=True, device=dev
+        train_ds, idx_train, B, shuffle=True, num_workers=workers, seed=cfg.train.seed, drop_last=True, device=dev,
+        shard=shard,
     )
-    dl_val = Prefetcher(eval_ds, idx_val, B, shuffle=False, num_workers=workers, device=dev)
+    dl_val = Prefetcher(eval_ds, idx_val, B, shuffle=False, num_workers=workers, device=dev, shard=shard)
 
     steps_per_epoch = max(1, len(dl_train))
-    state = create_state(cfg, state_dict, seed=cfg.train.seed, device=dev, steps_per_epoch=steps_per_epoch)
+    state = create_state(
+        cfg, state_dict, seed=cfg.train.seed, device=dev, steps_per_epoch=steps_per_epoch, mesh=mesh
+    )
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"[model] {cfg.model.backbone} | {n_params/1e6:.2f} M params")
 
@@ -130,8 +160,9 @@ def run_training(
     eval_step = make_eval_step(cfg)
 
     ckpt = CheckpointManager(str(save_dir))
-    logger = ScalarLogger(str(save_dir))
-    metric_writer = MetricWriter(str(save_dir))
+    save = ckpt.save if main else _Quiet().save
+    logger = ScalarLogger(str(save_dir)) if main else _Quiet()
+    metric_writer = MetricWriter(str(save_dir)) if main else _Quiet()
 
     start_epoch, best_f1 = 0, -1.0
     if resume and ckpt.exists("last"):
@@ -148,7 +179,7 @@ def run_training(
     global_step = int(state.step)
     prof = None
     prof_dir = save_dir / "profile"
-    if profile_steps > 0:
+    if profile_steps > 0 and main:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -222,15 +253,16 @@ def run_training(
                 val_steps = 0
                 for batch in dl_val:
                     out = eval_step(state, batch)
+                    gt = global_batch(mesh, batch, ("boxes_world", "num_boxes", "batch_mask"))
                     acc.update_batch(
                         out["boxes"].cpu().numpy(),
                         out["scores"].cpu().numpy(),
                         out["valid"].cpu().numpy(),
-                        batch["boxes_world"].cpu().numpy(),
-                        batch["num_boxes"].cpu().numpy(),
-                        batch["batch_mask"].cpu().numpy(),
+                        gt["boxes_world"],
+                        gt["num_boxes"],
+                        gt["batch_mask"],
                     )
-                    if save_vis and val_steps == 0:
+                    if save_vis and main and val_steps == 0:
                         save_bev_heatmap(out["heatmap"].float().cpu().numpy(), str(out_dir / f"epoch{epoch}_hm.png"))
                     val_steps += 1
                     if debug_max > 0 and val_steps >= debug_max:
@@ -273,7 +305,7 @@ def run_training(
             if mem_pct is not None:
                 print(f"[gpu] mem%={mem_pct:.0f}")
                 if mem_pct >= mem_limit:
-                    ckpt.save("mem_triggered", state, epoch=epoch, best_f1=best_f1)
+                    save("mem_triggered", state, epoch=epoch, best_f1=best_f1)
                     print("[gpu] saved memory-triggered checkpoint")
             hs = host_stats()
             if hs:
@@ -287,10 +319,10 @@ def run_training(
                 )
             metric_writer.write({"epoch": epoch, "train_loss": train_loss_epoch, **summary})
 
-            ckpt.save("last", state, epoch=epoch, best_f1=best_f1)
+            save("last", state, epoch=epoch, best_f1=best_f1)
             if summary and summary["f1"] > best_f1:
                 best_f1 = summary["f1"]
-                ckpt.save("best", state, epoch=epoch, best_f1=best_f1)
+                save("best", state, epoch=epoch, best_f1=best_f1)
                 print(f"[ckpt] new best (F1={best_f1:.3f})")
                 no_improve = 0
             elif do_eval:
@@ -301,7 +333,8 @@ def run_training(
 
     if prof is not None:
         _stop_profile(" (run ended before N steps)")
-    save_learning_curves(train_loss_curve, val_f1_curve, str(save_dir / "learning_curves.png"))
+    if main:
+        save_learning_curves(train_loss_curve, val_f1_curve, str(save_dir / "learning_curves.png"))
     logger.close()
     final_metrics["train_loss"] = train_loss_curve[-1] if train_loss_curve else float("nan")
     final_metrics["best_f1"] = best_f1

@@ -13,6 +13,16 @@ statistics are updated in place.
 A batch is a dict of arrays or tensors: 'images' [B, V, H, W, 3] (uint8
 or float), 'K' [B, V, 3, 3], 'Rt' [B, V, 4, 4], 'boxes_world' [B, N, 4]
 (cx, cy, w, h metres, padded) and 'num_boxes' [B].
+
+On a sharded mesh (``create_state(..., mesh=)``) the batch is this rank's
+part (``parallel.shard_batch``). The loss's normalisers are summed over
+'data', so a data shard's loss is its part of the global batch's. Every
+view rank of a data group computes the same head and loss, and the
+backward of the view sum adds their cotangents: each rank backpropagates
+its loss over ``n_view``, and the gradients are summed over the whole
+mesh. Then each rank holds the single-device gradients of the global
+batch, and the parameters and Adam's state stay equal across ranks. The
+metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from ..models.encoders.pretrained import load_pretrained_backbone
 from ..ops.decode import decode_detections
 from ..ops.losses import detection_loss
 from ..ops.splat import build_targets
+from ..parallel.collectives import gather, sum_no_grad
 from ..serving import resolve_device
 from .optim import OptState, Optimizer, build_optimizer
 
@@ -55,6 +66,7 @@ def create_state(
     seed: int = 0,
     device: str | torch.device = "cuda",
     steps_per_epoch: int,
+    mesh=None,
 ) -> TrainState:
     """The model of ``cfg`` on ``device`` with ``state_dict``'s weights
     (random ones from ``seed`` when None) and a fresh optimizer. Runs on
@@ -64,9 +76,10 @@ def create_state(
     With random weights, ``MODEL.PRETRAINED`` and ``PRETRAINED_PATH``
     load a torch ResNet ``.pth`` into the backbone. That load is tolerant,
     as the JAX package's: on any failure it prints ``[pretrained] load
-    failed (...); training from scratch`` and goes on."""
+    failed (...); training from scratch`` and goes on. ``mesh``: the mesh
+    the model runs under (``BEVNet.from_config``)."""
     dev = resolve_device(device)
-    model = BEVNet.from_config(cfg)
+    model = BEVNet.from_config(cfg, mesh=mesh)
     model.load_state_dict(init_state_dict(cfg, seed) if state_dict is None else state_dict)
     m = cfg.model
     if state_dict is None and m.pretrained and m.pretrained_path:
@@ -97,9 +110,10 @@ def loss_fn(cfg: Config, model: BEVNet, batch: Mapping[str, torch.Tensor]) -> Me
         )
     model.train()
     out = model(batch["images"], batch["K"], batch["Rt"])
+    reduce = (lambda t: sum_no_grad(t, model.mesh, "data")) if model.sharded else None
     return detection_loss(
         out, targets, hm_alpha=l.hm_alpha, hm_beta=l.hm_beta, hm_weight=l.hm_weight,
-        offset_weight=l.offset_weight, size_weight=l.size_weight,
+        offset_weight=l.offset_weight, size_weight=l.size_weight, reduce=reduce,
     )
 
 
@@ -120,6 +134,19 @@ def gradients(model: BEVNet, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
 
 
+def all_reduce_gradients(grads: Mapping[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Every rank's gradients summed over the mesh, as one flat f32 buffer
+    in a fixed order: each rank gets the same bits."""
+    names = list(grads)
+    flat = sum_no_grad(torch.cat([grads[n].float().reshape(-1) for n in names]), mesh, "mesh")
+    out, at = {}, 0
+    for n in names:
+        g = grads[n]
+        out[n] = flat[at : at + g.numel()].view(g.shape).to(g.dtype)
+        at += g.numel()
+    return out
+
+
 def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
 
@@ -138,9 +165,15 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Batch], Metrics]:
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
         b = batch_to_device(batch, state.device)
-        losses = loss_fn(cfg, state.model, b)
-        grads = gradients(state.model, losses["total_loss"])
+        model = state.model
+        losses = loss_fn(cfg, model, b)
         metrics = {k: v.detach() for k, v in losses.items()}
+        if not model.sharded:
+            grads = gradients(model, losses["total_loss"])
+        else:
+            mesh = model.mesh
+            grads = all_reduce_gradients(gradients(model, losses["total_loss"] / mesh.n_view), mesh)
+            metrics = {k: sum_no_grad(v, mesh, "data") for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         apply_gradients(state, grads)
         return metrics
@@ -154,7 +187,9 @@ def make_eval_step(
     """Returns ``eval_step(state, batch)``: the forward in eval mode and the
     decode, {'boxes', 'scores', 'valid', 'heatmap'} on the device.
     ``quant_head`` / ``quant_encoder``: int8 trees (``export.calibrate_*``)
-    on the state's device; the eval then scores the int8 serving path."""
+    on the state's device; the eval then scores the int8 serving path.
+    On a sharded mesh the outputs are gathered over 'data': every rank
+    gets the global batch's."""
     e, m = cfg.eval, cfg.model
 
     @torch.no_grad()
@@ -166,6 +201,9 @@ def make_eval_step(
             out["heatmap"], out["offset"], out["size"], bounds=m.bev_bounds,
             conf_thresh=e.conf_thresh, nms_dist_m=e.nms_dist_m, max_dets=e.max_dets,
         )
-        return {"boxes": det["boxes"], "scores": det["scores"], "valid": det["valid"], "heatmap": out["heatmap"]}
+        res = {"boxes": det["boxes"], "scores": det["scores"], "valid": det["valid"], "heatmap": out["heatmap"]}
+        if state.model.sharded:
+            res = {k: gather(v, state.model.mesh, "data", 0) for k, v in res.items()}
+        return res
 
     return eval_step
