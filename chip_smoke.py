@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline DIR   # kernel rows 1, 2, 4, 5, 7 of the checkout in DIR beside these
+    python3 chip_smoke.py --mesh-diagnostic  # where the bf16 mesh runs' gradient distance comes from
+    python3 chip_smoke.py --bn-timing        # train-step time with BatchNorm's sums in float64 and float32
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -162,7 +164,15 @@ Phases, each of which raises on failure (exit code != 0):
    heatmap (batch 1) with cuDNN's TF32 at its default and off, timed, the
    heatmaps within TF32_HEATMAP_BOUND;
 16. ``[overfit]``: ``python -m vsta_tpu_torch.overfit_check`` (ResNet-18,
-   4 views at 216x384, batch 2, 40 epochs) reaches F1 0.8.
+   4 views at 216x384, batch 2, 40 epochs) reaches F1 0.8;
+17. ``[e2e]``: the recorded-accuracy harnesses as subprocesses on the
+   flagship at full width: ``python -m vsta_tpu_torch.train_synthetic_e2e
+   --track`` on a 20-frame tree (3 epochs, batch 2), then ``python -m
+   vsta_tpu_torch.bench_serve_e2e --clips 1,2 --limit 8`` on its checkpoint,
+   synchronous and ``--overlap`` at once: both exit 0, every metric finite,
+   every served frame scored, the MOT rows equal with and without
+   ``--overlap``; their processes' launches (``VSTA_TORCH_LAUNCH_LOG``)
+   count into the kernels line.
 
 Prints the kernels JSON line (eight kernels), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -171,10 +181,12 @@ and outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -738,7 +750,7 @@ def sync_free_backward(inputs):
         m, w = maps.clone().requires_grad_(need_maps), wts.clone().requires_grad_(need_wts)
         out = gc.GroupedSample.apply(m, idx, w, gc.KERNELS)
         torch.cuda.synchronize()
-        before = {c.__name__: c.launches for c in grouped_counters()}
+        before = {c.__name__: c.launches for c in all_counters()}
         if fused is not None:
             gc.fused_backward_fits = lambda *a, f=fused: f
         torch.cuda.set_sync_debug_mode("error")
@@ -748,7 +760,7 @@ def sync_free_backward(inputs):
             torch.cuda.set_sync_debug_mode(0)
             gc.fused_backward_fits = fits
         torch.cuda.synchronize()
-        launched = {c.__name__: c.launches - before[c.__name__] for c in grouped_counters()}
+        launched = {c.__name__: c.launches - before[c.__name__] for c in all_counters()}
         check({k: v for k, v in launched.items() if v} == want, f"sync-free backward, {label}: launched {launched}")
         grads = [t.grad for t in (m, w) if t.grad is not None]
         check(all(bool(torch.isfinite(g).all()) for g in grads), f"sync-free backward, {label}: non-finite")
@@ -1229,14 +1241,15 @@ def deform_serving_phase(dev, cfg_path=DEFORM):
     log(f"[deform-serve] model built: {sum(v.numel() for v in state.values())} weights, "
         f"{time.perf_counter() - t0:.1f}s, compute dtype {model.dtype}, ATTN_STRIDE {model.attn_stride}")
     inputs = serve_inputs(cfg)
-    counters = grouped_counters() + (warp_tiles_counter(),)
+    counters = all_counters()
     reset(counters)
     _, n16 = timed_requests(cfg, serve, inputs, 16, 3, 5, "deform bf16")
     _, n1 = timed_requests(cfg, serve, inputs, 1, 2, 5, "deform bf16")
     launches = {c.__name__: c.launches for c in counters}
     log(f"[deform-serve] {n16 + n1} requests, launches {json.dumps(launches)}")
     check(launches == {"sample_tiles_grouped": 2 * (n16 + n1), "scatter_tapdot_grouped": 0, "scatter_taps_grouped": 0,
-                       "taps_dot_grouped": 0, "warp_tiles": 0}, f"deform serving launches {launches}")
+                       "taps_dot_grouped": 0, "warp_tiles": 0, "warp_views_sum": 0},
+          f"deform serving launches {launches}")
 
     # the forward's parts (CUDA events)
     x, k, rt = (torch.as_tensor(a, device=dev) for a in inputs)
@@ -1269,26 +1282,11 @@ def deform_serving_phase(dev, cfg_path=DEFORM):
     return launches
 
 
-def grouped_counters():
-    from vsta_tpu_torch.ops import grouped_cuda as gc
-
-    return (gc.sample_tiles_grouped, gc.scatter_tapdot_grouped, gc.scatter_taps_grouped, gc.taps_dot_grouped)
-
-
-def warp_tiles_counter():
-    from vsta_tpu_torch.ops.warp_cuda import warp_tiles
-
-    return warp_tiles
-
-
-def warp_views_sum_counter():
-    from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum
-
-    return warp_views_sum
-
-
 def all_counters():
-    return (warp_tiles_counter(), warp_views_sum_counter()) + grouped_counters()
+    """The kernel wrappers on the model paths, warp_tiles first."""
+    from vsta_tpu_torch.kernels import wrappers
+
+    return wrappers(ablation=False)
 
 
 def with_model_fields(cfg, **fields):
@@ -3076,18 +3074,26 @@ def export_phase(dev):
 # headroom named beside it.
 MULTIDEVICE_RUNS = {
     # the flagship at full width, 7 views, batch 2, data parallel; float32:
-    # a bf16 rounding anywhere would exceed the limit. Read 1.93e-4 (one
-    # device with its frames rotated: 2.46e-4); limit 1e-3, five times it
-    "b": (FLAGSHIP, {"runtime": {"use_amp": False}}, (2, 1), 1e-3),
+    # a bf16 rounding anywhere would exceed the limit. Read 3.33e-6 since
+    # BatchNorm sums in float64 (1.93e-4 before; one device with its frames
+    # rotated: 4.58e-6); limit 1e-4, thirty times it
+    "b": (FLAGSHIP, {"runtime": {"use_amp": False}}, (2, 1), 1e-4),
     # wildtrack_ms_max as shipped: 2 views, max over the views gathered
-    # from the view axis (rows 4 and 3). Read 6.40e-3 (frames rotated:
-    # 6.2e-4; why the mesh reads ten times its control is open); limit
-    # 2e-2, three times it
-    "c": (ROOT / "configs" / "wildtrack_ms_max.yaml", {}, (1, 2), 2e-2),
+    # from the view axis (rows 4 and 3). Read 2.25e-3 since BatchNorm sums
+    # in float64 and the homographies are batch-invariant (6.40e-3 before;
+    # the first loss bit-equal, every parameter outside the encoder
+    # bit-equal): the encoder's weight gradients, each rank rounding its
+    # half of the images' sum to bf16 where one device rounds the whole
+    # (frames rotated: 3.7e-4; with those gradients in f32, 2.88e-5:
+    # --mesh-diagnostic); limit 1e-2, about four times it
+    "c": (ROOT / "configs" / "wildtrack_ms_max.yaml", {}, (1, 2), 1e-2),
     # the flagship with 6 views: the all_reduce after warp_tiles at a local
-    # V of 3. Read 6.04e-2 (frames rotated: 5.57e-2, the run's own
-    # spread); limit 0.12, twice it
-    "d": (FLAGSHIP, {"data": {"views": 6}}, (1, 2), 0.12),
+    # V of 3, two bf16 half-sums of the views where one device rounds one
+    # (one device warping the two halves has the mesh's non-encoder
+    # gradients bit for bit: --mesh-diagnostic). Read 3.94e-2 (6.04e-2
+    # before; frames rotated: 5.65e-3, was 5.57e-2); limit 0.1, two and a
+    # half times it
+    "d": (FLAGSHIP, {"data": {"views": 6}}, (1, 2), 0.1),
 }
 MULTIDEVICE_STEPS = 3
 MULTIDEVICE_WORLD = 2
@@ -3148,9 +3154,10 @@ def multidevice_steps(cfg, dev, mesh=None, rotate=False, store=None):
     }
 
 
-def multidevice_worker(run, outdir) -> int:
+def multidevice_worker(run, outdir, patches=()) -> int:
     """One rank of a MULTIDEVICE_RUNS world (``--multidevice-rank RUN
-    DIR``): gloo, chosen explicitly, on cuda:0."""
+    DIR [PATCH ...]``): gloo, chosen explicitly, on cuda:0. With
+    PATCHES named, the run takes them and reads no kernel."""
     sys.path.insert(0, str(ROOT))
     from vsta_tpu_torch.parallel import init_distributed, make_mesh
 
@@ -3160,16 +3167,40 @@ def multidevice_worker(run, outdir) -> int:
     cfg = multidevice_config(run)
     mesh = make_mesh(*MULTIDEVICE_RUNS[run][2], batch_size=cfg.data.batch_size, views=cfg.data.views)
     check(mesh.size == MULTIDEVICE_WORLD and mesh.member, f"run {run}: mesh {mesh}")
-    store = {}
-    out = multidevice_steps(cfg, dev, mesh, store=store)
+    store = None if patches else {}
+    with patched(*patches):
+        out = multidevice_steps(cfg, dev, mesh, store=store)
     torch.distributed.barrier()  # both ranks are done with the card
     out["readings"] = {}
-    if mesh.rank == 0:  # the kernels at the shapes this rank gave them, each against its plain version
+    if mesh.rank == 0 and store is not None:  # the kernels at the shapes this rank gave them, each against its plain version
         out["readings"] = captured_readings(dev, f"mesh {run} {mesh.n_data}x{mesh.n_view} rank 0", store)
-    store.clear()
-    torch.save(out, Path(outdir) / f"{run}-rank{mesh.rank}.pt")
+    torch.save(out, Path(outdir) / f"{'+'.join((run, *patches))}-rank{mesh.rank}.pt")
     torch.distributed.destroy_process_group()
     return 0
+
+
+def spawn_ranks(run, tmp, patches=()):
+    """``run`` on two gloo ranks on cuda:0 (subprocesses of this script):
+    each rank's record, rank 0's log and the world's wall time."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(MULTIDEVICE_WORLD)}
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--multidevice-rank", run, str(tmp),
+                               *patches],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": "0"}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MULTIDEVICE_WORLD)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"[multidevice] run {run} {patches} rank {r} failed:\n{text[-4000:]}")
+    tag = "+".join((run, *patches))
+    ranks = [torch.load(tmp / f"{tag}-rank{r}.pt", weights_only=False) for r in range(MULTIDEVICE_WORLD)]
+    return ranks, logs[0], wall
 
 
 def free_port() -> int:
@@ -3240,25 +3271,10 @@ def multidevice_run(dev, run, tmp):
     control = multidevice_steps(cfg, dev, rotate=True)
     split = encoder_split_control(cfg, dev, mesh_shape)
     torch.cuda.empty_cache()
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
-           "WORLD_SIZE": str(MULTIDEVICE_WORLD)}
-    t = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--multidevice-rank", run, str(tmp)],
-                              env={**env, "RANK": str(r), "LOCAL_RANK": "0"}, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(MULTIDEVICE_WORLD)]
-    try:
-        logs = [p.communicate(timeout=900)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    wall = time.perf_counter() - t
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"[multidevice] run {run} rank {r} failed:\n{text[-4000:]}")
-    for ln in logs[0].splitlines():  # rank 0's kernels at the mesh's shapes
+    ranks, log0, wall = spawn_ranks(run, tmp)
+    for ln in log0.splitlines():  # rank 0's kernels at the mesh's shapes
         if ln.startswith(("[kernel]", "[grouped]")):
             log(ln)
-    ranks = [torch.load(tmp / f"{run}-rank{r}.pt", weights_only=False) for r in range(MULTIDEVICE_WORLD)]
     f32 = cfg.runtime.use_amp is False
     errs = [max_rel_grad_err(r["grads"], ref["grads"]) for r in ranks]
     dists = [grad_distance(r["grads"], ref["grads"]) for r in ranks]
@@ -3378,6 +3394,192 @@ def multidevice_phase(dev):
     return launches, readings
 
 
+class _ConvF32WeightGrad(torch.autograd.Function):
+    """A convolution whose weight gradient is computed from float32 copies
+    of its bf16 operands and returned in float32 (products of bf16 values
+    are exact in float32), where cuDNN's bf16 backward rounds it to bf16.
+    The forward and the input's gradient are cuDNN's, as before."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, groups):
+        w = weight.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups, bias is not None)
+        return torch.nn.functional.conv2d(x, w, None if bias is None else bias.to(x.dtype), stride, padding, 1, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups, has_bias = ctx.conf
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w, gy, stride, padding, 1, groups)
+        gw = torch.nn.grad.conv2d_weight(x.float(), w.shape, gy.float(), stride, padding, 1, groups)
+        return gx, gw, gy.float().sum((0, 2, 3)) if has_bias else None, None, None, None
+
+
+def f32_weight_grads():
+    """The encoders' convolutions (ResNet's ``_conv``, EfficientNet's
+    ``conv``, also the encoder's projection's) through
+    :class:`_ConvF32WeightGrad`: (module, name, value)."""
+    from vsta_tpu_torch.models.encoders import efficientnet, encoder, resnet
+
+    def effnet_conv(x, c, stride=1):
+        x = efficientnet.same_pad(x, c.weight.shape[-1], stride)
+        return _ConvF32WeightGrad.apply(x, c.weight, c.bias, stride, 0, c.groups)
+
+    return [(resnet, "_conv", lambda x, c: _ConvF32WeightGrad.apply(x, c.weight, None, c.stride, c.padding, 1)),
+            (efficientnet, "conv", effnet_conv), (encoder, "conv", effnet_conv)]
+
+
+def view_halves():
+    """The one-device concat warp in the two halves of the views that a
+    1x2 mesh's ranks hold, the halves added in the compute dtype and the
+    bias added once after, as ``warp_proj_sharded`` and its all-reduce do:
+    (module, name, value)."""
+    from vsta_tpu_torch.models import bevnet
+
+    whole = bevnet.warp_proj
+
+    def halves(feats, coords, kernel, bias, dtype, **kw):
+        V = feats.shape[1]
+        out = None
+        for s in (slice(0, V // 2), slice(V // 2, V)):
+            part = whole(feats[:, s], coords[s] if coords.ndim == 4 else coords[:, s], kernel[s], None, dtype, **kw)
+            out = part if out is None else out + part
+        return out if bias is None else out + bias.to(out.dtype)
+
+    return [(bevnet, "warp_proj", halves)]
+
+
+def batchnorm_f32_sums():
+    """BatchNorm's training statistics on one device summed in float32, as
+    before they were summed in float64: (class, name, value)."""
+    from vsta_tpu_torch.models.encoders import norm
+
+    shipped = norm.BatchNorm.forward
+
+    def forward(self, x):
+        if not self.training or self.mesh is not None:
+            return shipped(self, x)
+        xf = x.float()
+        mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        var = torch.clamp(sq - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = norm.BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+    return [(norm.BatchNorm, "forward", forward)]
+
+
+PATCHES = {"f32-weight-grads": f32_weight_grads, "view-halves": view_halves, "batchnorm-f32-sums": batchnorm_f32_sums}
+
+
+@contextlib.contextmanager
+def patched(*names):
+    """The PATCHES named, in place for the block."""
+    saved = []
+    try:
+        for name in names:
+            for module, attr, value in PATCHES[name]():
+                saved.append((module, attr, getattr(module, attr)))
+                setattr(module, attr, value)
+        yield
+    finally:
+        for module, attr, value in reversed(saved):
+            setattr(module, attr, value)
+
+
+def mesh_diagnostic_phase(dev):
+    """``python3 chip_smoke.py --mesh-diagnostic``: where the bf16 mesh
+    runs' distance from one device comes from (c and d of
+    MULTIDEVICE_RUNS; the first call's gradients, per-parameter distance,
+    worst by group). Each run on one device, on one device with its frames
+    rotated (the control) and on two ranks, as shipped and with the
+    encoders' weight gradients in float32 (``f32-weight-grads``); d also
+    on one device with the warp in the ranks' halves of the views
+    (``view-halves``), alone and with float32 weight gradients. Nothing
+    is held to a limit: it prints readings."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="vsta_meshdiag_"))
+    try:
+        for run in ("c", "d"):
+            cfg = multidevice_config(run)
+            for patches in ((), ("f32-weight-grads",)):
+                with patched(*patches):
+                    ref = multidevice_steps(cfg, dev)
+                    rot = multidevice_steps(cfg, dev, rotate=True)
+                    halves = None
+                    if run == "d":
+                        with patched("view-halves"):
+                            halves = multidevice_steps(cfg, dev)
+                torch.cuda.empty_cache()
+                ranks, _, wall = spawn_ranks(run, tmp, patches)
+                mesh = ranks[0]
+                same = all(torch.equal(mesh["grads"][k], r["grads"][k]) for r in ranks[1:] for k in mesh["grads"])
+                label = "+".join(patches) or "as shipped"
+                line = (f"[mesh-diag] {run} ({label}): mesh vs one device "
+                        f"{worst_by_group(grad_distance(mesh['grads'], ref['grads']))}; frames rotated vs one device "
+                        f"{worst_by_group(grad_distance(rot['grads'], ref['grads']))}")
+                if halves is not None:
+                    line += (f"; one device with the views' halves vs one device "
+                             f"{worst_by_group(grad_distance(halves['grads'], ref['grads']))}; mesh vs the views' halves "
+                             f"{worst_by_group(grad_distance(mesh['grads'], halves['grads']))}")
+                log(f"{line}; first losses mesh {mesh['losses'][0]:.6f}, one device {ref['losses'][0]:.6f}; "
+                    f"ranks' gradients bit-equal {same}; world's wall {wall:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+BN_TIMING_CONFIGS = {"flagship": FLAGSHIP, "resnet50": ROOT / "configs" / "wildtrack_v1_resnet50.yaml"}
+
+
+def bn_timing_phase(dev, calls=10, warm=2):
+    """``python3 chip_smoke.py --bn-timing``: the train step of the flagship
+    and of ResNet-50 as shipped, with BatchNorm's training sums in float64
+    (the code) and in float32 (``batchnorm-f32-sums``, the code before), in
+    turns (float64, float32, float32, float64) from a fresh state each:
+    ``warm`` calls, then ``calls`` timed, per call on the host clock
+    (synchronised) and in CUDA events. Prints the medians of each."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.training.state import batch_to_device, create_state, make_train_step
+
+    for label, path in BN_TIMING_CONFIGS.items():
+        cfg = load_config(str(path))
+        batches = [train_batch(cfg, cfg.data.batch_size, seed) for seed in range(2)]
+        host, device = {"float64": [], "float32": []}, {"float64": [], "float32": []}
+        for turn in ("float64", "float32", "float32", "float64"):
+            with patched(*(("batchnorm-f32-sums",) if turn == "float32" else ())):
+                state = create_state(cfg, seed=0, device=dev, steps_per_epoch=100)
+                step = make_train_step(cfg)
+                for i in range(warm + calls):
+                    b = batch_to_device(batches[i % 2], dev)
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize(dev)
+                    t = time.perf_counter()
+                    e0.record()
+                    step(state, b)
+                    e1.record()
+                    torch.cuda.synchronize(dev)
+                    if i >= warm:
+                        host[turn].append((time.perf_counter() - t) * 1e3)
+                        device[turn].append(e0.elapsed_time(e1))
+            del state
+            torch.cuda.empty_cache()
+        med = {k: (float(np.median(host[k])), float(np.median(device[k]))) for k in host}
+        log(f"[bn-timing] {label} ({path.name}, batch {cfg.data.batch_size}, {cfg.data.views} views, "
+            f"{'bf16' if cfg.runtime.use_amp else 'f32'}): per train-step call, median of {2 * calls} in two turns, "
+            f"host clock / CUDA events (ms): BatchNorm sums in float64 {med['float64'][0]:.2f} / "
+            f"{med['float64'][1]:.2f}, "
+            f"in float32 {med['float32'][0]:.2f} / {med['float32'][1]:.2f}; events by turn "
+            f"{json.dumps({k: [round(x, 2) for x in v] for k, v in device.items()})}")
+
+
 TF32_HEATMAP_BOUND = 5e-3  # |heatmap with cuDNN's TF32 - without|: ten times the 4.9e-4 an H100 read (PERF.md)
 
 
@@ -3432,12 +3634,128 @@ def overfit_phase(timeout=900):
           f"overfit_check did not reach F1 0.8:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
 
 
+# The harnesses run the kernels in subprocesses, where no capture reaches
+# them, so they keep to shapes that kernel_phase, grouped_phase and
+# flagship_training_phase hold against the plain versions: training and
+# eval at the flagship's batch 2 (warp_tiles K = 2 x 128, rows 4 and 3 at
+# G = 7, K = 2 x 41), artifacts at batch 1 and 2 (warp_tiles K = 128, 256).
+E2E_TRAIN = ["--frames", "20", "--epochs", "3", "--batch", "2", "--img_hw", "270x480", "--track"]
+E2E_SERVE = ["--clips", "1,2", "--limit", "8"]
+E2E_HELD_BATCHES = {"train": (TRAIN_K // 128,), "serve": (1, TRAIN_K // 128, WARP_K // 128)}
+
+
+def launch_log_totals(path):
+    """The launches that the processes logging to ``path`` made
+    (``kernels.LAUNCH_LOG_ENV``), summed by kernel, and how many processes
+    wrote."""
+    lines = [json.loads(x) for x in Path(path).read_text().splitlines()] if Path(path).exists() else []
+    total = {}
+    for rec in lines:
+        for k, n in rec["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total, len(lines)
+
+
+def e2e_phase(dev, cfg_path=FLAGSHIP, train_args=E2E_TRAIN, serve_args=E2E_SERVE, timeout=600):
+    """The recorded-accuracy harnesses on the card, as subprocesses: ``python
+    -m vsta_tpu_torch.train_synthetic_e2e`` of the flagship (EfficientNet-B0,
+    concat, bf16) at full width on a small tree (E2E_TRAIN: 20 frames at
+    270x480, 3 epochs, batch 2, ``--track``: 16 frames train, the last 4
+    tracked), then ``python -m vsta_tpu_torch.bench_serve_e2e`` (E2E_SERVE:
+    artifacts at batch 1 and 2, 8 frames served) on its checkpoint, with
+    ``--overlap`` off and on at once. Both exit 0; every metric of both
+    result lines is finite and the ground truth is not empty; every served
+    frame is scored; the MOT numbers with ``--overlap`` equal those without.
+    Returns the launches of every process the harnesses started
+    (``kernels.LAUNCH_LOG_ENV``): training and eval, export, and the serve
+    CLI's warm-up requests and graph capture."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    arg = dict(zip(train_args, train_args[1:]))
+    clips = [int(c) for c in serve_args[serve_args.index("--clips") + 1].split(",")]
+    check(int(arg["--batch"]) in E2E_HELD_BATCHES["train"] and set(clips) <= set(E2E_HELD_BATCHES["serve"]),
+          f"[e2e] batch {arg['--batch']} / clips {clips}: the kernels are held only at {E2E_HELD_BATCHES}")
+    tmp = Path(tempfile.mkdtemp(prefix="vsta_e2e_"))
+    try:
+        log_path = tmp / "launches.jsonl"
+        env = {**os.environ, "PYTHONPATH": str(ROOT), "TMPDIR": str(tmp), "VSTA_TORCH_LAUNCH_LOG": str(log_path)}
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "vsta_tpu_torch.train_synthetic_e2e", "--config", str(cfg_path),
+                            "--work_dir", str(tmp / "run"), *train_args], capture_output=True, text=True,
+                           timeout=timeout, env=env, cwd=str(ROOT))
+        train_s = time.perf_counter() - t
+        lines = dict(re.findall(r"^\[(e2e-result|track-result)\] (\{.*\})$", r.stdout, re.MULTILINE))
+        evals = [x for x in r.stdout.splitlines() if "phase=eval" in x]
+        log(f"[e2e] train_synthetic_e2e {' '.join(train_args)}: exit {r.returncode} in {train_s:.1f}s; "
+            + " | ".join(evals[-3:]))
+        check(r.returncode == 0 and set(lines) == {"e2e-result", "track-result"},
+              f"[e2e] train_synthetic_e2e failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        summary = json.loads(lines["e2e-result"])
+        log(f"[e2e] e2e-result {json.dumps(summary)}")
+        metrics = {k: v for k, v in summary.items() if isinstance(v, (int, float))}
+        check(all(math.isfinite(v) for v in metrics.values()) and summary["track_n_gt"] > 0 and summary["n_frames"] > 0,
+              f"[e2e] a non-finite metric or no ground truth: {summary}")
+        train_launches, n_train = launch_log_totals(log_path)
+        log_path.unlink()
+
+        frames = int(serve_args[serve_args.index("--limit") + 1])
+        root = tmp / f"vsta_e2e_{arg['--frames']}f_{arg['--img_hw']}"
+        save_dir = yaml.safe_load(Path(cfg_path).read_text())["RUNTIME"]["SAVE_DIR"]
+        cmd = [sys.executable, "-m", "vsta_tpu_torch.bench_serve_e2e", "--checkpoint",
+               str(tmp / "run" / save_dir / "best"), "--config", str(cfg_path), "--data", str(root), *serve_args]
+        t = time.perf_counter()
+        runs = {}
+        for mode in ("sync", "overlap"):  # the two at once, each in a directory of its own
+            (tmp / mode).mkdir()
+            runs[mode] = subprocess.Popen(cmd + (["--overlap"] if mode == "overlap" else []), stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True, env={**env, "TMPDIR": str(tmp / mode)},
+                                          cwd=str(ROOT))
+        try:
+            outs = {mode: p.communicate(timeout=timeout) for mode, p in runs.items()}
+        finally:
+            for p in runs.values():
+                p.kill()
+        serve_s = time.perf_counter() - t
+        rows = {}
+        for mode, (out, err) in outs.items():
+            check(runs[mode].returncode == 0, f"[e2e] bench_serve_e2e ({mode}) failed:\n{out[-3000:]}\n{err[-3000:]}")
+            rows[mode] = [json.loads(m) for m in re.findall(r"^\[serve-e2e\] (\{.*\})$", out, re.MULTILINE)]
+            for row in rows[mode]:
+                log(f"[e2e] bench_serve_e2e ({mode}) {json.dumps(row)}")
+                served = sorted((tmp / mode).glob(f"vsta_serve_e2e_*/serve_clips{row['clips']}/frame_*.json"))
+                check(row["frames"] == frames == len(served),
+                      f"[e2e] clips {row['clips']} ({mode}): {row['frames']} frames served, {len(served)} scored")
+                check(all(math.isfinite(row[k]) for k in ("mota", "idf1", "motp_m", "id_switches")),
+                      f"[e2e] a non-finite MOT number: {row}")
+            per_clip = re.findall(r"^\[serve-e2e\] per-clip: (\{.*\})$", out, re.MULTILINE)
+            check(sum(c["n_gt"] for c in json.loads(per_clip[-1]).values()) > 0, f"[e2e] no ground truth: {per_clip}")
+        mot = {mode: [{k: r[k] for k in ("clips", "mota", "idf1", "motp_m", "id_switches", "frames")} for r in rs]
+               for mode, rs in rows.items()}
+        log(f"[e2e] bench_serve_e2e {' '.join(serve_args)}, sync and --overlap at once: {serve_s:.1f}s; "
+            f"MOT with --overlap equal to without: {mot['sync'] == mot['overlap']}")
+        check([r["clips"] for r in rows["sync"]] == clips and mot["sync"] == mot["overlap"],
+              f"[e2e] --overlap changed the MOT numbers: {mot}")
+        serve_launches, n_serve = launch_log_totals(log_path)
+        launches = {k: train_launches.get(k, 0) + serve_launches.get(k, 0) for k in {**train_launches, **serve_launches}}
+        log(f"[e2e] launches: train_synthetic_e2e {json.dumps(train_launches)} ({n_train} process); the exports and "
+            f"serve CLIs {json.dumps(serve_launches)} ({n_serve} processes)")
+        for name in ("warp_tiles", "sample_tiles_grouped", "scatter_taps_grouped"):
+            check(train_launches.get(name, 0) > 0, f"[e2e] {name} was not launched in training")
+        check(serve_launches.get("warp_tiles", 0) > 0, "[e2e] warp_tiles was not launched by the artifacts")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     if "--multidevice-rank" in sys.argv:  # one rank of multidevice_phase's worlds
         i = sys.argv.index("--multidevice-rank")
-        return multidevice_worker(sys.argv[i + 1], sys.argv[i + 2])
+        return multidevice_worker(sys.argv[i + 1], sys.argv[i + 2], tuple(sys.argv[i + 3:]))
     sys.path.insert(0, str(ROOT))
     from vsta_tpu_torch import kernels
 
@@ -3460,6 +3778,12 @@ def main() -> int:
 
     if "--baseline" in sys.argv:  # a comparison only: python3 chip_smoke.py --baseline DIR
         baseline_phase(dev, sys.argv[sys.argv.index("--baseline") + 1])
+        return 0
+    if "--mesh-diagnostic" in sys.argv or "--bn-timing" in sys.argv:  # readings only
+        if "--mesh-diagnostic" in sys.argv:
+            mesh_diagnostic_phase(dev)
+        if "--bn-timing" in sys.argv:
+            bn_timing_phase(dev)
         return 0
 
     t = time.perf_counter()
@@ -3523,21 +3847,25 @@ def main() -> int:
     t = time.perf_counter()
     overfit_phase()
     log(f"[overfit] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    e2e = e2e_phase(dev)
+    log(f"[e2e] phase {time.perf_counter() - t:.1f}s")
     # launches on the model paths, each path counted from 0 over its own
     # run: flagship serving (both warp dispatches), training and the loop, deform
     # serving and training (ATTN_STRIDE 4 and 1), both families with
     # per-frame cameras, the max and attn fusions, the three ResNet configs
     # served and trained (and sanity with GroupNorm), the exported artifacts
     # (counted at their capture: a replay goes through no Python wrapper), the mesh runs (a world of
-    # one and both ranks of each two-rank world). The ablation variants
+    # one and both ranks of each two-rank world), and the harnesses' processes (the e2e phase: training
+    # and eval, the exports, the serve CLIs' warm-ups and captures). The ablation variants
     # are on no model path: their count is the attribution run's.
     paths = [train, loop, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train,
-             resnet_serve, resnet_train, export_launches, mesh]
+             resnet_serve, resnet_train, export_launches, mesh, e2e]
     on_paths = {k: sum(path.get(k, 0) for path in paths) for k in train}
     entries += [views_entry, ablation_entry]
     counts = {
         f"{WARP_TPU}:162": serve_launches["resident"] + train["warp_tiles"] + loop["warp_tiles"]
-        + export_launches["warp_tiles"] + mesh["resident"],
+        + export_launches["warp_tiles"] + mesh["resident"] + e2e["warp_tiles"],
         f"{WARP_TPU}:353": serve_launches["windowed"] + mesh["windowed"],
         **{e["replaces"]: on_paths[e["name"]] for e in entries if e["name"] in on_paths},
         ablation_entry["replaces"]: ablation_entry["launches"],

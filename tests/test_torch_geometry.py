@@ -57,6 +57,22 @@ def test_homography_and_projection_match_jax(rng):
     np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), rtol=1e-5, atol=1e-5)
 
 
+def test_homography_and_projection_batch_invariant(rng):
+    """A view's homography and projected points are the same bits whether
+    its call holds the other views or not (a view mesh's rank computes its
+    views alone), and ``small_matmul`` is the product within rounding."""
+    Ks, Rts = (torch.from_numpy(a) for a in _cams(V=4))
+    pts = torch.from_numpy(np.concatenate([rng.uniform(-10, 10, (40, 2)), np.ones((40, 1))], -1).astype(np.float32))
+    H = tgeo.compute_homography(Ks, Rts)
+    uv, w = tgeo.project_points(H, pts)
+    for lo, hi in ((0, 1), (1, 3), (3, 4)):
+        H_part = tgeo.compute_homography(Ks[lo:hi], Rts[lo:hi])
+        assert torch.equal(H_part, H[lo:hi])
+        uv_part, w_part = tgeo.project_points(H_part, pts)
+        assert torch.equal(uv_part, uv[lo:hi]) and torch.equal(w_part, w[lo:hi])
+    np.testing.assert_allclose(H.numpy(), (Ks.double() @ Rts[:, :3][:, :, [0, 1, 3]].double()).numpy(), rtol=1e-6)
+
+
 def test_invert_homography_and_rodrigues_match_jax(rng):
     H = rng.standard_normal((4, 3, 3)).astype(np.float32)
     H[1] = np.outer([1.0, 2.0, 3.0], [1.0, 0.5, 2.0])  # singular: pinv branch

@@ -15,6 +15,10 @@ steps a case.
 Boxes differ from frame to frame, so the loss's normalisers differ from
 shard to shard.
 
+The bf16 case: ms_max with USE_AMP on a 1x2 mesh (ranks 0 and 1), one
+step, against the port's single-device step and JAX's own 1x2 mesh
+against its 1x1 (test_bf16_view_mesh_holds_to_jax_mesh).
+
 Last, every rank drives the entry points on a 2x2 mesh over a synthetic
 tree (10 frames, 2 views): ``run_training`` (2 steps and an eval), then
 ``python -m vsta_tpu_torch.evaluate --split all`` and ``.inference
@@ -67,18 +71,29 @@ if __name__ != "__main__":  # the rank processes compile nothing of JAX
 WORLD = 4
 B, V, H, W = 4, 4, 32, 48
 SPE = 10  # steps per epoch of the optimizer's schedule
+BF16_MESH = (1, 2)  # the bf16 case's mesh: the views split over two ranks
+# its gradient distance (test_bf16_view_mesh_holds_to_jax_mesh), from the
+# port's own control: its one device with the frames rotated by one or two
+# places (BF16_ROTATIONS), the same function summed in another order, reads
+# at worst 6.22e-3 from these weights; the limit is 2.4 times that, and the
+# test holds the control under half of it
+BF16_MESH_LIMIT = 1.5e-2
+BF16_ROTATIONS = (1, 2)
 
-# config name -> MODEL fields over the tiny config, image size, steps
+# config name -> MODEL fields over the tiny config, image size, steps[,
+# RUNTIME fields]
 CONFIGS = {
     "concat": ({}, (H, W), 2),
     "pallas": ({"WARP_IMPL": "pallas"}, (H, W), 2),
     "attn": ({"FUSION": "attn", "WARP_IMPL": "gather"}, (H, W), 2),
     "deform_attn": ({"FUSION": "deform_attn", "ATTN_HEADS": 2, "ATTN_POINTS": 2, "ATTN_STRIDE": 2}, (H, W), 2),
     "ms_max": ({"BACKBONE": "resnet18", "FUSION": "max", "OUT_INDEX": [1, 2], "WARP_IMPL": "gather"}, (H, W), 2),
+    "ms_max-bf16": ({"BACKBONE": "resnet18", "FUSION": "max", "OUT_INDEX": [1, 2], "WARP_IMPL": "gather"}, (H, W), 1,
+                    {"USE_AMP": True}),
 }
 # on the CPU JAX runs WARP_IMPL pallas as the XLA warp, the function of
 # fused: one JAX run (and its weights) serves both
-JAX_TWIN = {"pallas": "concat"}
+JAX_TWIN = {"pallas": "concat", "ms_max-bf16": "ms_max"}
 # case -> (config, mesh): each twin of tests/test_multichip.py
 CASES = {
     "data-parallel-4x1": ("concat", (4, 1)),
@@ -93,7 +108,8 @@ CASES = {
 
 
 def raw_config(name):
-    model, (h, w), _ = CONFIGS[name]
+    model, (h, w) = CONFIGS[name][:2]
+    runtime = CONFIGS[name][3] if len(CONFIGS[name]) > 3 else {}
     return {
         "DATA": {"BATCH_SIZE": B, "IMG_SIZE": [3, h, w], "VIEWS": V},
         "MODEL": {
@@ -103,7 +119,7 @@ def raw_config(name):
         },
         "TRAIN": {"EPOCHS": 2, "LR": 1e-3, "ACCUM_STEPS": 1},
         "LOSS": {"MAX_OBJECTS": 8},
-        "RUNTIME": {"USE_AMP": False, "DEVICE": "cpu"},
+        "RUNTIME": {"USE_AMP": False, "DEVICE": "cpu", **runtime},
     }
 
 
@@ -127,12 +143,13 @@ def host_batch(name, seed=0):
     }
 
 
-def run_port(name, state_dict, mesh=None):
+def run_port(name, state_dict, mesh=None, rotate=0):
     """The config's steps through the port: losses, the first call's
-    gradients and the final state dict, as numpy."""
+    gradients and the final state dict, as numpy. ``rotate`` moves the
+    batch's frames by that many places."""
     cfg = tcfg.from_dict(raw_config(name))
     state = create_state(cfg, state_dict, device="cpu", steps_per_epoch=SPE, mesh=mesh)
-    hb = host_batch(name)
+    hb = {k: np.roll(v, rotate, axis=0) for k, v in host_batch(name).items()}
     batch = hb if mesh is None else shard_batch(hb, mesh, "cpu")
     grads, update = {}, state.tx.update
 
@@ -271,6 +288,10 @@ def _rank_main(outdir: Path) -> None:
     for case, (name, (nd, nv)) in CASES.items():
         mesh = make_mesh(nd, nv, batch_size=B, views=V)
         rec["cases"][case] = run_port(name, weights[name], mesh)
+    # the bf16 case on ranks 0 and 1; ranks 2 and 3 lie outside the mesh
+    mesh = make_mesh(*BF16_MESH, batch_size=B, views=V)
+    if mesh.member:
+        rec["bf16"] = run_port("ms_max-bf16", weights["ms_max-bf16"], mesh)
 
     # the int8 head's eval on 4x1 against 1x1
     from vsta_tpu_torch.export import calibrate_quant_head
@@ -322,28 +343,19 @@ def _random_variables(tree, rng):
     return out
 
 
-def _jax_run(name):
-    """JAX's make_mesh(1, 1) run of the config from random weights: the
-    weights as a port state dict, and a function that returns the loss of
-    its first train step (the train-mode forward and loss of
-    ``make_train_step``, compiled without the backward)."""
-    import jax
-    import jax.numpy as jnp
-
+def _jax_train_loss(name, mesh_shape):
+    """JAX's model of the config on ``make_mesh(*mesh_shape)`` and the
+    train-mode forward and loss of its ``make_train_step``, as
+    ``loss(variables, batch)``."""
     from vsta_tpu import config as jcfg
     from vsta_tpu.models import BEVNet as JBEVNet
     from vsta_tpu.ops.losses import detection_loss
     from vsta_tpu.ops.splat import build_targets
     from vsta_tpu.parallel.mesh import make_mesh as jmake_mesh
-    from vsta_tpu.parallel.mesh import shard_batch as jshard_batch
-    from vsta_tpu_torch.convert import state_dict_from_flax
 
     cfg = jcfg.from_dict(raw_config(name))
-    mesh = jmake_mesh(1, 1)
+    mesh = jmake_mesh(*mesh_shape)
     model = JBEVNet.from_config(cfg, mesh=mesh)
-    hb = host_batch(name)
-    shapes = jax.eval_shape(lambda *a: model.init(*a, train=False), jax.random.PRNGKey(0), hb["images"], hb["K"], hb["Rt"])
-    variables = _random_variables(shapes, np.random.default_rng(0))
     l, m = cfg.loss, cfg.model
 
     def loss(variables, batch):
@@ -357,8 +369,46 @@ def _jax_run(name):
             offset_weight=l.offset_weight, size_weight=l.size_weight,
         )["total_loss"]
 
+    return model, mesh, loss
+
+
+def _jax_run(name):
+    """JAX's make_mesh(1, 1) run of the config from random weights: the
+    weights as a port state dict, a function that returns the loss of its
+    first train step (compiled without the backward), and the weights as
+    JAX's numpy variables."""
+    import jax
+    import jax.numpy as jnp
+
+    from vsta_tpu.parallel.mesh import shard_batch as jshard_batch
+    from vsta_tpu_torch.convert import state_dict_from_flax
+
+    model, mesh, loss = _jax_train_loss(name, (1, 1))
+    hb = host_batch(name)
+    shapes = jax.eval_shape(lambda *a: model.init(*a, train=False), jax.random.PRNGKey(0), hb["images"], hb["K"], hb["Rt"])
+    variables = _random_variables(shapes, np.random.default_rng(0))
     jvars = jax.tree.map(jnp.asarray, variables)
-    return state_dict_from_flax(variables), lambda: float(jax.jit(loss)(jvars, jshard_batch(hb, mesh)))
+    return state_dict_from_flax(variables), lambda: float(jax.jit(loss)(jvars, jshard_batch(hb, mesh))), variables
+
+
+def _jax_first_gradients(name, variables, mesh_shape):
+    """The gradients of JAX's first train step of ``name`` on
+    ``make_mesh(*mesh_shape)`` (devices of the conftest's eight virtual
+    CPU devices), weights replicated and the batch sharded as
+    tests/test_multichip.py's ``_run_steps`` does: ``make_train_step``'s
+    loss under ``jax.grad`` of the parameters, as port tensors by name."""
+    import jax
+    import jax.numpy as jnp
+
+    from vsta_tpu.parallel.mesh import replicate_sharding
+    from vsta_tpu.parallel.mesh import shard_batch as jshard_batch
+    from vsta_tpu_torch.convert import params_from_flax
+
+    _, mesh, loss = _jax_train_loss(name, mesh_shape)
+    v = jax.device_put(jax.tree.map(jnp.asarray, variables), replicate_sharding(mesh))
+    grad = jax.jit(jax.grad(lambda params, stats, batch: loss({"params": params, "batch_stats": stats}, batch)))
+    g = grad(v["params"], v["batch_stats"], jshard_batch(host_batch(name), mesh))
+    return {k: t.numpy() for k, t in params_from_flax(jax.tree.map(lambda a: np.asarray(a, np.float32), g)).items()}
 
 
 @pytest.fixture(scope="module")
@@ -368,6 +418,7 @@ def world(tmp_path_factory):
     outdir = tmp_path_factory.mktemp("world")
     jax_runs = {name: _jax_run(name) for name in CONFIGS if name not in JAX_TWIN}
     weights = {name: jax_runs[JAX_TWIN.get(name, name)][0] for name in CONFIGS}
+    bf16_vars = jax_runs[JAX_TWIN["ms_max-bf16"]][2]
     (outdir / "weights.pkl").write_bytes(pickle.dumps(weights))
     generate_synthetic_wildtrack(outdir / "tree", n_frames=LOOP_FRAMES, n_views=2, n_people=3, img_hw=(108, 192))
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(WORLD))
@@ -380,9 +431,11 @@ def world(tmp_path_factory):
         for r in range(WORLD)
     ]
     try:
-        first = {name: run() for name, (_, run) in jax_runs.items()}
+        first = {name: run() for name, (_, run, _) in jax_runs.items()}
+        jax_bf16 = {shape: _jax_first_gradients("ms_max-bf16", bf16_vars, shape) for shape in ((1, 1), BF16_MESH)}
         want_jax = {name: first[JAX_TWIN.get(name, name)] for name in CONFIGS}
         single = {name: run_port(name, weights[name]) for name in CONFIGS}
+        single["bf16-rotated"] = [run_port("ms_max-bf16", weights["ms_max-bf16"], rotate=r) for r in BF16_ROTATIONS]
         with pytest.MonkeyPatch.context() as mp:  # as in the ranks: no TensorBoard
             mp.setitem(sys.modules, "torch.utils.tensorboard", None)
             single["loop"] = run_training(tcfg.from_dict(loop_raw(outdir / "tree", outdir / "single", (1, 1))),
@@ -397,7 +450,7 @@ def world(tmp_path_factory):
     # the CLIs on one device, on the checkpoint the mesh's loop wrote
     single["entry"] = entry_points(outdir / "tree", outdir / "single-cli", (1, 1), outdir / "entry0" / "ckpt" / "last")
     single["loop_losses"] = _losses(outdir / "single" / "ckpt")
-    return ranks, want_jax, single, logs, outdir
+    return ranks, want_jax, single, logs, outdir, jax_bf16
 
 
 def test_mesh_shapes_and_coordinates(world):
@@ -478,6 +531,56 @@ def test_gradients_match_single_device(world, case):
         for k, w in want.items():
             assert np.linalg.norm(got[k] - w) <= 1e-3 * max(norms[k], floor), k
         assert abs(np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in got.values())) / total - 1) <= 1e-4
+
+
+def grad_distance(got, want):
+    """The worst per-parameter distance: ||got - want|| / max(||want||,
+    1e-2 of the largest ||want||), as chip_smoke.py's ``grad_distance``."""
+    norms = {k: float(np.linalg.norm(w.astype(np.float64))) for k, w in want.items()}
+    floor = 1e-2 * max(norms.values())
+    return max(float(np.linalg.norm(got[k].astype(np.float64) - w)) / max(norms[k], floor) for k, w in want.items())
+
+
+def test_bf16_view_mesh_holds_to_jax_mesh(world):
+    """ms_max (ResNet-18, OUT_INDEX (1, 2), FUSION max) in bf16 on a 1x2
+    mesh, one step from the same weights in both packages: the first
+    call's gradients against one device's, read the same way on each side
+    (the worst per-parameter distance).
+
+    Readings on the CPU from these weights (tiny shapes, batch 4, 4 views):
+    JAX's 1x2 mesh lies 4.7e-9 from its 1x1 (GSPMD gathers the images and
+    runs the encoder whole on both devices, so no sum is split); JAX's one
+    device with its frames rotated by one or two places 1.05e-1 and
+    1.25e-1 (the f32 BatchNorm sums, summed in another order, and the bf16
+    output). The port summed BatchNorm's statistics in two f32 halves
+    over the mesh and lay 8.7e-2 from one device (9.0e-2 and 4.7e-3 with
+    its frames rotated). Since the sums accumulate in float64
+    (``models/encoders/norm.py``) the statistics come out as one
+    device's, bit for bit, and the mesh lies 6.22e-3 from one device, as
+    far as its own one device with the frames rotated (4.73e-3 and
+    6.22e-3: the bf16 gradients summed over the images in another order).
+    So the port's mesh splits sums that JAX's does not, and lies about 1e6
+    times further from one device than JAX's; the limit therefore comes
+    from the port's own control: BF16_MESH_LIMIT 1.5e-2, 2.4 times the
+    worst rotated-frames reading, which the test reads again and holds
+    under half the limit. JAX's reading (4.7e-9) is reported, not a limit.
+    The parent's mesh (8.7e-2) and its control (9.0e-2) both fail. The
+    first loss at rtol 2e-4, as the f32 cases, and the first call's
+    BatchNorm statistics bit-equal to one device's."""
+    ranks, _, single, jax_bf16 = world[0], world[1], world[2], world[5]
+    want = single["ms_max-bf16"]
+    d_jax = grad_distance(jax_bf16[BF16_MESH], jax_bf16[(1, 1)])
+    control = max(grad_distance(rot["grads"], want["grads"]) for rot in single["bf16-rotated"])
+    assert control <= BF16_MESH_LIMIT / 2, control
+    stats = [k for k in want["state"] if k.endswith(("running_mean", "running_var"))]
+    assert stats and [r["rank"] for r in ranks if "bf16" in r] == [0, 1]
+    for rec in ranks[:2]:
+        got = rec["bf16"]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-4)
+        d_port = grad_distance(got["grads"], want["grads"])
+        assert d_port <= BF16_MESH_LIMIT, (d_port, control, d_jax)
+        for k in stats:  # after the first call: its batch statistics, summed over the mesh
+            assert got["state"][k].tobytes() == want["state"][k].tobytes(), k
 
 
 @pytest.mark.parametrize("case", list(CASES))

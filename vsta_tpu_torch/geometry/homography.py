@@ -32,6 +32,19 @@ def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
     return torch.where(theta < 1e-8, eye, R)
 
 
+def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a short inner dimension, (..., I, K) @ (..., K, J)
+    broadcast over the leading dims, as elementwise products added in the
+    order k = 0, 1, ...: every element's bits are the same whatever the
+    batch. (On the card cuBLAS picks its kernel, and with it the rounding,
+    by the batch count: a view mesh's ranks would warp their views through
+    other coordinates than one device holding every view.)"""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
 def compute_homography(K: torch.Tensor, Rt: torch.Tensor) -> torch.Tensor:
     """World ground plane (z=0) -> image homography ``K @ [r1 r2 t]``.
 
@@ -40,7 +53,7 @@ def compute_homography(K: torch.Tensor, Rt: torch.Tensor) -> torch.Tensor:
     K3 = K[..., :3, :3].to(torch.float32)
     Rt = Rt.to(torch.float32)
     G = torch.cat([Rt[..., :3, 0:1], Rt[..., :3, 1:2], Rt[..., :3, 3:4]], dim=-1)
-    return K3 @ G
+    return small_matmul(K3, G)
 
 
 def invert_homography(H: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -58,7 +71,7 @@ def project_points(H: torch.Tensor, pts: torch.Tensor, w_eps: float = 1e-6):
     H: (..., 3, 3); pts: (..., N, 3). Returns (uv (..., N, 2), w (..., N)):
     uv dehomogenised, with |w| < w_eps divided by 1 instead.
     """
-    uvw = torch.einsum("...ij,...nj->...ni", H, pts)
+    uvw = small_matmul(pts, H.transpose(-1, -2))
     w = uvw[..., 2]
     w_safe = torch.where(w.abs() < w_eps, torch.ones_like(w), w)
     return uvw[..., :2] / w_safe[..., None], w

@@ -6,15 +6,24 @@ use, from the package's sources only, into ``build/kernels/`` beside the
 package (listed in ``.gitignore``); the library's file name carries a
 hash of its source and of the headers in ``csrc/``, so an edited source
 or header is rebuilt.
+
+With ``VSTA_TORCH_LAUNCH_LOG`` set to a file's path, a process that
+imported the kernels appends one JSON line to it when it exits: its pid,
+its command line and every kernel wrapper's launch count
+(:func:`launch_counts`). So a caller can count the launches of the CLIs
+it runs as subprocesses (``chip_smoke.py``'s e2e phase).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 from typing import Dict
 
@@ -26,6 +35,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+LAUNCH_LOG_ENV = "VSTA_TORCH_LAUNCH_LOG"
 
 
 def _nvcc() -> str:
@@ -80,3 +90,31 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def wrappers(ablation: bool = True) -> tuple:
+    """Every kernel wrapper; each counts its launches in ``.launches``.
+    Without ``ablation``, those on the model paths only: all but
+    ``warp_tiles_variant``."""
+    from .ops import grouped_cuda, warp_cuda, warp_views_cuda
+
+    on_paths = (
+        warp_cuda.warp_tiles, warp_views_cuda.warp_views_sum,
+        grouped_cuda.sample_tiles_grouped, grouped_cuda.scatter_tapdot_grouped,
+        grouped_cuda.scatter_taps_grouped, grouped_cuda.taps_dot_grouped,
+    )
+    return on_paths + ((warp_cuda.warp_tiles_variant,) if ablation else ())
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count in this process, by name."""
+    return {f.__name__: f.launches for f in wrappers()}
+
+
+def _append_launch_log(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv, "launches": launch_counts()}) + "\n")
+
+
+if os.environ.get(LAUNCH_LOG_ENV):
+    atexit.register(_append_launch_log, os.environ[LAUNCH_LOG_ENV])

@@ -27,12 +27,19 @@ class BatchNorm(nn.BatchNorm2d):
     moves the running statistics by ``0.9 * running + 0.1 * batch``.
     (``F.batch_norm(training=True)`` would store the unbiased variance.)
 
+    The sums of x and x^2 accumulate in float64, and the mean and E[x^2]
+    are rounded to f32 from them: up to a rounding tie, the same f32
+    statistics come out whatever the order of the summation. Summed in
+    f32, the order moved them by an ulp, and ``E[x^2] - mean^2`` and
+    the bf16 output turned that into gradients 9e-2 apart
+    (``tests/test_torch_parallel.py``, the bf16 mesh case).
+
     ``mesh`` (set by a sharded ``BEVNet``): in training the statistics
     cover the whole mesh, as JAX's jit computes them over the sharded
-    B*V images: one differentiable all-reduce of the f32 sums of x and
-    x^2, over a count of the local count times the mesh's ranks (every
-    rank holds as many images). The running statistics come out equal on
-    every rank.
+    B*V images: one differentiable all-reduce of the float64 sums, over a
+    count of the local count times the mesh's ranks (every rank holds as
+    many images). The statistics come out as one device's, and the
+    running statistics equal on every rank.
     """
 
     mesh = None
@@ -47,12 +54,12 @@ class BatchNorm(nn.BatchNorm2d):
                 False, 0.0, self.eps,
             ).to(x.dtype)
         xf = x.float()
-        if self.mesh is None:
-            mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
-        else:
-            count = xf.numel() // xf.shape[1] * self.mesh.size
-            sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]), self.mesh, "mesh")
-            mean, sq = sums[0] / count, sums[1] / count
+        dims, f64 = (0, 2, 3), torch.float64
+        sums = torch.stack([xf.sum(dim=dims, dtype=f64), (xf * xf).sum(dim=dims, dtype=f64)])
+        count = xf.numel() // xf.shape[1]
+        if self.mesh is not None:
+            sums, count = all_reduce_sum(sums, self.mesh, "mesh"), count * self.mesh.size
+        mean, sq = (sums / count).float()
         var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = BN_MOMENTUM
