@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline DIR   # kernel rows 1, 2, 4, 5, 7 of the checkout in DIR beside these
-    python3 chip_smoke.py --mesh-diagnostic  # where the bf16 mesh runs' gradient distance comes from
     python3 chip_smoke.py --bn-timing        # train-step time with BatchNorm's sums in float64 and float32
 
 Phases, each of which raises on failure (exit code != 0):
@@ -148,21 +147,29 @@ Phases, each of which raises on failure (exit code != 0):
 14. the mesh (after phase 10): a world of one, the flagship's train step
    x3 and an eval step through ``parallel.make_mesh()`` with no process
    group, bit-equal to the single-device path with the same launches;
-   then three worlds of two gloo ranks on cuda:0 (``--multidevice-rank``
-   subprocesses of this script; NCCL refuses two ranks on one card): the
-   flagship in float32 on a 2x1 mesh, configs/wildtrack_ms_max.yaml as
-   shipped on 1x2 (max over the views gathered, rows 4 and 3), the
+   then four worlds of two gloo ranks on cuda:0 (``--multidevice-rank``
+   subprocesses of this script; NCCL refuses two ranks on one card),
+   every view rank encoding all the views of its frames as JAX's compiled
+   mesh program does: the flagship in float32 on a 2x1 mesh,
+   configs/wildtrack_ms_max.yaml as shipped on 1x2 (max over the views,
+   rows 4 and 3; no sum split over 'view': one device's gradients), the
    flagship with 6 views on 1x2 (the all-reduce after warp_tiles at a
-   local V of 3); each 3 train steps held to the same steps on one device
+   local V of 3) and configs/wildtrack_deform.yaml with 6 views on 1x2
+   (the warped query's all-reduce after sample_tiles_grouped; rows 4, 6
+   and 3); each 3 train steps held to the same steps on one device
    (losses, the first call's gradients within the run's own limit; a run
-   with the frames rotated by one as a control of the summation order, and
-   the encoder's eval forward in one call against the ranks' parts), rank
-   0's kernels at the shapes the mesh gave them against their plain
-   versions, parameters bit-equal across the ranks, ms a step a rank,
-   launches by kernel (``[multidevice]``);
+   with the frames rotated by one as a control of the summation order;
+   the last two also against one device warping the ranks' halves of the
+   views, ``view-halves``, within 1e-6), rank 0's kernels at the shapes
+   the mesh gave them against their plain versions, parameters bit-equal
+   across the ranks, ms a step a rank, launches by kernel
+   (``[multidevice]``);
 15. ``[tf32]``: an f32 wildtrack_sanity request (batch 16) and a flagship
    heatmap (batch 1) with cuDNN's TF32 at its default and off, timed, the
    heatmaps within TF32_HEATMAP_BOUND;
+   then ``[timing]``: ``utils.timing.forward_decode_fps`` (the chained-N
+   slope of the JAX package's benchmarks) of the flagship in bf16 at
+   batch 16 and 1, beside ``cuda_ms`` of the same call;
 16. ``[overfit]``: ``python -m vsta_tpu_torch.overfit_check`` (ResNet-18,
    4 views at 216x384, batch 2, 40 epochs) reaches F1 0.8;
 17. ``[e2e]``: the recorded-accuracy harnesses as subprocesses on the
@@ -2481,19 +2488,23 @@ RESNET_CONFIGS = {
 
 
 def capturing_kernels(store):
-    """The grouped kernels, with rows 4 and 3 keeping the inputs of their
-    first call in ``store``: the shapes a model path gives them."""
+    """The grouped kernels, with rows 4, 6 and 3 keeping the inputs of
+    their first call in ``store``: the shapes a model path gives them."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
 
     def sample(maps, idx, wts):
         store.setdefault("sample_tiles_grouped", (maps.detach(), idx, wts.detach()))
         return gc.sample_tiles_grouped(maps, idx, wts)
 
+    def scatter_tapdot(maps, gout, idx, wts, *rest):
+        store.setdefault("scatter_tapdot_grouped", (maps.detach(), gout.detach(), idx, wts.detach()))
+        return gc.scatter_tapdot_grouped(maps, gout, idx, wts, *rest)
+
     def scatter_taps(gout, idx, wts, P, *rest):
         store.setdefault("scatter_taps_grouped", (gout.detach(), idx, wts.detach(), P))
         return gc.scatter_taps_grouped(gout, idx, wts, P, *rest)
 
-    return gc.KERNELS._replace(sample=sample, scatter_taps=scatter_taps)
+    return gc.KERNELS._replace(sample=sample, scatter_tapdot=scatter_tapdot, scatter_taps=scatter_taps)
 
 
 def capturing_warp(store):
@@ -2509,11 +2520,12 @@ def capturing_warp(store):
 
 
 def captured_readings(dev, label, store):
-    """warp_tiles and rows 4 and 3 on the inputs a model call gave them:
-    each against its plain version (warp_tiles within one ulp of its
-    output dtype as in kernel_phase, row 4 bit-equal, row 3 within 1e-5 of
-    max|ref|), then its time, the plain version's, the library's and the
-    bound. The warp's reading is keyed by its entry in the kernels line."""
+    """warp_tiles and rows 4, 6 and 3 on the inputs a model call gave
+    them: each against its plain version (warp_tiles within one ulp of its
+    output dtype as in kernel_phase, row 4 bit-equal, rows 6 and 3 within
+    1e-5 of max|ref|), then its time, the plain version's, the library's
+    and the bound. The warp's reading is keyed by its entry in the kernels
+    line."""
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
 
@@ -2534,6 +2546,15 @@ def captured_readings(dev, label, store):
         err = hold(f"sample_tiles_grouped {label}", out, gc.sample_tiles_grouped_ref(maps, idx, wts), "exact")
         readings["sample_tiles_grouped"] = {"path": label, **measure(dev, "sample_tiles_grouped", maps, out, idx, wts, err)}
         del out
+    if "scatter_tapdot_grouped" in store:
+        maps, gout, idx, wts = store["scatter_tapdot_grouped"]
+        dm, dw = gc.scatter_tapdot_grouped(maps, gout, idx, wts)
+        ref_dm, ref_dw = gc.scatter_tapdot_grouped_ref(maps, gout, idx, wts)
+        err = max(hold(f"scatter_tapdot_grouped dmaps {label}", dm, ref_dm, "f32"),
+                  hold(f"scatter_tapdot_grouped d_wts {label}", dw, ref_dw, "f32"))
+        readings["scatter_tapdot_grouped"] = {
+            "path": label, **measure(dev, "scatter_tapdot_grouped", maps, gout, idx, wts, err)}
+        del dm, dw, ref_dm, ref_dw
     if "scatter_taps_grouped" in store:
         gout, idx, wts, P = store["scatter_taps_grouped"]
         dm = gc.scatter_taps_grouped(gout, idx, wts, P)
@@ -3067,33 +3088,39 @@ def export_phase(dev):
 # -- multi-device: the ('data', 'view') mesh on torch.distributed ------------
 
 # run -> (config, fields replaced in memory, mesh (n_data, n_view), limit
-# of the first call's per-parameter gradient distance to one device's);
-# each a world of two gloo ranks on cuda:0 (NCCL refuses two ranks on one
-# card). Each limit is set from that run's own reading on an H100 (the
-# distance is deterministic: two runs read the same value), with the
-# headroom named beside it.
+# of the first call's per-parameter gradient distance to one device's,
+# limit of that distance to one device warping the ranks' halves of the
+# views (``view-halves``) or None); each a world of two gloo ranks on
+# cuda:0 (NCCL refuses two ranks on one card). Every view rank encodes all
+# the views of its frames, as JAX's compiled mesh program does, so the one
+# sum split over 'view' is the warp's. Each limit is set from that run's
+# own reading on an H100 (the distance is deterministic: two runs read the
+# same value), with the headroom named beside it.
 MULTIDEVICE_RUNS = {
     # the flagship at full width, 7 views, batch 2, data parallel; float32:
     # a bf16 rounding anywhere would exceed the limit. Read 3.33e-6 since
     # BatchNorm sums in float64 (1.93e-4 before; one device with its frames
     # rotated: 4.58e-6); limit 1e-4, thirty times it
-    "b": (FLAGSHIP, {"runtime": {"use_amp": False}}, (2, 1), 1e-4),
-    # wildtrack_ms_max as shipped: 2 views, max over the views gathered
-    # from the view axis (rows 4 and 3). Read 2.25e-3 since BatchNorm sums
-    # in float64 and the homographies are batch-invariant (6.40e-3 before;
-    # the first loss bit-equal, every parameter outside the encoder
-    # bit-equal): the encoder's weight gradients, each rank rounding its
-    # half of the images' sum to bf16 where one device rounds the whole
-    # (frames rotated: 3.7e-4; with those gradients in f32, 2.88e-5:
-    # --mesh-diagnostic); limit 1e-2, about four times it
-    "c": (ROOT / "configs" / "wildtrack_ms_max.yaml", {}, (1, 2), 1e-2),
+    "b": (FLAGSHIP, {"runtime": {"use_amp": False}}, (2, 1), 1e-4, None),
+    # wildtrack_ms_max as shipped: 2 views, max over the views (rows 4 and
+    # 3), no sum split over 'view'. Reads 0, one device's gradients and
+    # losses bit for bit (frames rotated, the same function summed in
+    # another order: 3.7e-4); limit 1e-6, the bound the partition is held to
+    "c": (ROOT / "configs" / "wildtrack_ms_max.yaml", {}, (1, 2), 1e-6, None),
     # the flagship with 6 views: the all_reduce after warp_tiles at a local
-    # V of 3, two bf16 half-sums of the views where one device rounds one
-    # (one device warping the two halves has the mesh's non-encoder
-    # gradients bit for bit: --mesh-diagnostic). Read 3.94e-2 (6.04e-2
-    # before; frames rotated: 5.65e-3, was 5.57e-2); limit 0.1, two and a
-    # half times it
-    "d": (FLAGSHIP, {"data": {"views": 6}}, (1, 2), 0.1),
+    # V of 3, two bf16 half-sums of the views where one device rounds one,
+    # the sum JAX's program splits too. Reads 3.935e-2 from one device
+    # (frames rotated: 5.65e-3); limit 0.1, two and a half times it. Against
+    # one device warping the two halves: reads 0, every gradient and loss
+    # bit-equal; limit 1e-6
+    "d": (FLAGSHIP, {"data": {"views": 6}}, (1, 2), 0.1, 1e-6),
+    # the deformable family with 6 views: the warped query's all_reduce
+    # after sample_tiles_grouped at a local V of 3, the deformable fusion on
+    # every view on each rank (rows 4, 6 and 3). Reads 4.705e-2 from one
+    # device (frames rotated: 6.55e-3); limit 0.1, about twice it. Against
+    # one device warping the query's two halves: reads 0, bit-equal; limit
+    # 1e-6
+    "e": (DEFORM, {"data": {"views": 6}}, (1, 2), 0.1, 1e-6),
 }
 MULTIDEVICE_STEPS = 3
 MULTIDEVICE_WORLD = 2
@@ -3220,37 +3247,6 @@ def max_rel_grad_err(got, want):
     return max(float((got[k] - w).abs().max()) / max(peaks[k], floor) for k, w in want.items())
 
 
-def encoder_split_control(cfg, dev, mesh_shape):
-    """The encoder's eval-mode forward on one device: a batch's B*V images
-    in one call against the ranks' parts of it (B / n_data frames by
-    V / n_view views), each part in a call of its own. The same weights
-    and the same function: only the image count of a call differs, and
-    with it the convolution algorithms cuDNN picks. Returns max|a - b| /
-    max|a| and the share of the elements that differ."""
-    from vsta_tpu_torch.training.state import create_state
-
-    model = create_state(cfg, seed=0, device=dev, steps_per_epoch=100).model.eval()
-    x = torch.as_tensor(train_batch(cfg, cfg.data.batch_size, 0)["images"], device=dev)
-    x = (x.float() - model.img_mean) * model.img_scale
-    (nd, nv), (B, V) = mesh_shape, x.shape[:2]
-
-    def enc(t):
-        e = model.encoder(t)
-        return (e[0] if isinstance(e, tuple) else e).float()
-
-    with torch.no_grad():
-        whole = enc(x)
-        parts = torch.cat([
-            torch.cat([enc(x[d * B // nd:(d + 1) * B // nd, v * V // nv:(v + 1) * V // nv]) for v in range(nv)], 1)
-            for d in range(nd)
-        ], 0)
-    diff = (whole - parts).abs()
-    out = float(diff.max() / whole.abs().max()), float((diff > 0).float().mean())
-    del model, x, whole, parts, diff
-    torch.cuda.empty_cache()
-    return out
-
-
 def worst_by_group(dists):
     """The worst per-parameter distance among the encoder's parameters,
     whose gradients sum over the images a rank holds, and among the
@@ -3261,15 +3257,20 @@ def worst_by_group(dists):
 
 
 def multidevice_run(dev, run, tmp):
-    """Run ``run`` on one device in this process, then on two gloo ranks
+    """Run ``run`` on one device in this process (as it stands, with its
+    frames rotated, and, where the run has a halves limit, with the warp
+    in the ranks' halves of the views), then on two gloo ranks
     (subprocesses of this script), and hold the ranks to it. Returns the
     ranks' launches, summed, and rank 0's readings of the kernels at the
     shapes the mesh gave them."""
     cfg = multidevice_config(run)
-    mesh_shape, limit = MULTIDEVICE_RUNS[run][2:]
+    mesh_shape, limit, halves_limit = MULTIDEVICE_RUNS[run][2:]
     ref = multidevice_steps(cfg, dev)
     control = multidevice_steps(cfg, dev, rotate=True)
-    split = encoder_split_control(cfg, dev, mesh_shape)
+    halves = None
+    if halves_limit is not None:
+        with patched("view-halves"):
+            halves = multidevice_steps(cfg, dev)
     torch.cuda.empty_cache()
     ranks, log0, wall = spawn_ranks(run, tmp)
     for ln in log0.splitlines():  # rank 0's kernels at the mesh's shapes
@@ -3281,6 +3282,15 @@ def multidevice_run(dev, run, tmp):
     same = all(torch.equal(ranks[0]["state"][k], r["state"][k]) for r in ranks[1:] for k in ranks[0]["state"])
     control_dists = grad_distance(control["grads"], ref["grads"])
     floor = (max_rel_grad_err(control["grads"], ref["grads"]), control_dists[0])
+    halves_s = ""
+    if halves is not None:
+        to_halves = [grad_distance(r["grads"], halves["grads"]) for r in ranks]
+        equal = [all(torch.equal(r["grads"][k], halves["grads"][k]) for k in halves["grads"]) for r in ranks]
+        halves_s = (f"; against one device warping the ranks' halves of the views: per-parameter distance worst "
+                    f"{[f'{d[0][0]:.3e} ({d[0][1]})' for d in to_halves]} (limit {halves_limit:.0e}; by group, rank "
+                    f"0: {worst_by_group(to_halves[0])}), every gradient bit-equal {equal}; that one device against "
+                    f"one device: {worst_by_group(grad_distance(halves['grads'], ref['grads']))}, ms per step "
+                    f"{[round(x, 2) for x in halves['ms']]}")
 
     def norm(g):
         return math.sqrt(sum(float(v.double().pow(2).sum()) for v in g.values()))
@@ -3289,14 +3299,13 @@ def multidevice_run(dev, run, tmp):
     log(f"[multidevice] {run}: {Path(MULTIDEVICE_RUNS[run][0]).name} {json.dumps(MULTIDEVICE_RUNS[run][1])}, "
         f"batch {cfg.data.batch_size}, {cfg.data.views} views, {'float32' if f32 else 'bfloat16'}, mesh data "
         f"{mesh_shape[0]} x view {mesh_shape[1]} (gloo, 2 ranks on cuda:0); losses one device "
-        f"{[round(x, 6) for x in ref['losses']]}, ranks {[[round(x, 6) for x in r['losses']] for r in ranks]}; "
+        f"{[round(x, 6) for x in ref['losses']]}, ranks {[[round(x, 6) for x in r['losses']] for r in ranks]}"
+        f"{'' if halves is None else ', one device on the halves ' + str([round(x, 6) for x in halves['losses']])}; "
         f"max relative gradient error (first call, max|a-b| / max(max|b|, 1e-2 of the largest) over parameters) "
         f"{[f'{e:.3e}' for e in errs]}, per-parameter distance worst {[f'{d[0][0]:.3e} ({d[0][1]})' for d in dists]} "
         f"(limit {limit:.0e}; by group, rank 0: {worst_by_group(dists[0])}) (one device with its frames rotated: "
         f"{floor[0]:.3e}, {floor[1][0]:.3e} ({floor[1][1]}); by group: {worst_by_group(control_dists)}; losses "
-        f"{[round(x, 6) for x in control['losses']]}); encoder forward on one device, all {cfg.data.batch_size} x "
-        f"{cfg.data.views} images in one call against the ranks' parts in calls of their own: max|a-b|/max|a| "
-        f"{split[0]:.3e}, elements that differ {split[1]:.4f}; global gradient norm over one device's "
+        f"{[round(x, 6) for x in control['losses']]}){halves_s}; global gradient norm over one device's "
         f"{[f'{x:.6f}' for x in ratios]}; "
         f"ms per step one device {[round(x, 2) for x in ref['ms']]}, ranks "
         f"{[[round(x, 2) for x in r['ms']] for r in ranks]}; launches one device {json.dumps(ref['launches'])}, "
@@ -3305,11 +3314,19 @@ def multidevice_run(dev, run, tmp):
     check(same, f"[multidevice] {run}: parameters differ across ranks")
     for r, d in zip(ranks, dists):
         # the losses: float32 at rtol 2e-4, as JAX's multi-device tests;
-        # bfloat16 at 2e-3 (half a bf16 ulp). The first call's gradients
-        # within the run's limit (MULTIDEVICE_RUNS). The global norm within
-        # 1 % of one device's: the trap (gradients n_view times or 1/n_data
-        # of one device's) moves it by 50 % or more
-        np.testing.assert_allclose(r["losses"], ref["losses"], rtol=2e-4 if f32 else 2e-3)
+        # bfloat16 at 2e-3 (half a bf16 ulp); where the run has a halves
+        # reference, at 1e-6 of that one device, which computes the mesh's
+        # function. The first call's gradients within the run's limit
+        # (MULTIDEVICE_RUNS), and within its halves limit of one device
+        # warping the ranks' halves. The global norm within 1 % of one
+        # device's: the trap (gradients n_view times or 1/n_data of one
+        # device's) moves it by 50 % or more
+        if halves is None:
+            np.testing.assert_allclose(r["losses"], ref["losses"], rtol=2e-4 if f32 else 2e-3)
+        else:
+            np.testing.assert_allclose(r["losses"], halves["losses"], rtol=1e-6)
+            h = grad_distance(r["grads"], halves["grads"])[0]
+            check(h[0] <= halves_limit, f"[multidevice] {run}: against the views' halves {h[0]:.3e} ({h[1]})")
         check(d[0][0] <= limit, f"[multidevice] {run}: gradients {d[0][0]:.3e} ({d[0][1]}) > {limit:.3e}")
         for name, n in ref["launches"].items():
             check((n > 0) == (r["launches"][name] > 0), f"[multidevice] {run}: {name} launched {r['launches'][name]}")
@@ -3362,7 +3379,7 @@ def world_of_one(dev):
 
 def multidevice_phase(dev):
     """The mesh on the card: (a) a world of one through the new code; (b)
-    to (d) MULTIDEVICE_RUNS, each two gloo ranks on cuda:0 held to the same
+    to (e) MULTIDEVICE_RUNS, each two gloo ranks on cuda:0 held to the same
     run on one device. Two ranks on one card show that the sharded math
     and the kernels a shard runs are right, not the speed of NCCL. Returns
     the launches of the mesh runs by kernel, the warp split by its output
@@ -3390,66 +3407,33 @@ def multidevice_phase(dev):
             readings.append(reading)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[multidevice] launches on the mesh runs (world of one and both ranks of b-d): {json.dumps(launches)}")
+    log(f"[multidevice] launches on the mesh runs (world of one and both ranks of b-e): {json.dumps(launches)}")
     return launches, readings
 
 
-class _ConvF32WeightGrad(torch.autograd.Function):
-    """A convolution whose weight gradient is computed from float32 copies
-    of its bf16 operands and returned in float32 (products of bf16 values
-    are exact in float32), where cuDNN's bf16 backward rounds it to bf16.
-    The forward and the input's gradient are cuDNN's, as before."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding, groups):
-        w = weight.to(x.dtype)
-        ctx.save_for_backward(x, w)
-        ctx.conf = (stride, padding, groups, bias is not None)
-        return torch.nn.functional.conv2d(x, w, None if bias is None else bias.to(x.dtype), stride, padding, 1, groups)
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, w = ctx.saved_tensors
-        stride, padding, groups, has_bias = ctx.conf
-        gx = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.nn.grad.conv2d_input(x.shape, w, gy, stride, padding, 1, groups)
-        gw = torch.nn.grad.conv2d_weight(x.float(), w.shape, gy.float(), stride, padding, 1, groups)
-        return gx, gw, gy.float().sum((0, 2, 3)) if has_bias else None, None, None, None
-
-
-def f32_weight_grads():
-    """The encoders' convolutions (ResNet's ``_conv``, EfficientNet's
-    ``conv``, also the encoder's projection's) through
-    :class:`_ConvF32WeightGrad`: (module, name, value)."""
-    from vsta_tpu_torch.models.encoders import efficientnet, encoder, resnet
-
-    def effnet_conv(x, c, stride=1):
-        x = efficientnet.same_pad(x, c.weight.shape[-1], stride)
-        return _ConvF32WeightGrad.apply(x, c.weight, c.bias, stride, 0, c.groups)
-
-    return [(resnet, "_conv", lambda x, c: _ConvF32WeightGrad.apply(x, c.weight, None, c.stride, c.padding, 1)),
-            (efficientnet, "conv", effnet_conv), (encoder, "conv", effnet_conv)]
-
-
 def view_halves():
-    """The one-device concat warp in the two halves of the views that a
-    1x2 mesh's ranks hold, the halves added in the compute dtype and the
-    bias added once after, as ``warp_proj_sharded`` and its all-reduce do:
+    """The one-device view-summed warps (concat's ``warp_proj`` and the
+    deformable query's ``fused_warp_proj``) in the two halves of the views
+    that a 1x2 mesh's ranks hold, each half's features contiguous as the
+    rank's slice is, the halves added in the compute dtype and the bias
+    added once after, as ``warp_proj_sharded`` and its all-reduce do:
     (module, name, value)."""
     from vsta_tpu_torch.models import bevnet
 
-    whole = bevnet.warp_proj
+    def halves_of(whole):
+        def halves(feats, coords, kernel, bias, dtype, **kw):
+            V = feats.shape[1]
+            out = None
+            for s in (slice(0, V // 2), slice(V // 2, V)):
+                c = coords[s] if coords.ndim == 4 else coords[:, s]
+                part = whole(feats[:, s].contiguous(), c, kernel[s], None, dtype, **kw)
+                out = part if out is None else out + part
+            return out if bias is None else out + bias.to(out.dtype)
 
-    def halves(feats, coords, kernel, bias, dtype, **kw):
-        V = feats.shape[1]
-        out = None
-        for s in (slice(0, V // 2), slice(V // 2, V)):
-            part = whole(feats[:, s], coords[s] if coords.ndim == 4 else coords[:, s], kernel[s], None, dtype, **kw)
-            out = part if out is None else out + part
-        return out if bias is None else out + bias.to(out.dtype)
+        return halves
 
-    return [(bevnet, "warp_proj", halves)]
+    return [(bevnet, "warp_proj", halves_of(bevnet.warp_proj)),
+            (bevnet, "fused_warp_proj", halves_of(bevnet.fused_warp_proj))]
 
 
 def batchnorm_f32_sums():
@@ -3475,7 +3459,7 @@ def batchnorm_f32_sums():
     return [(norm.BatchNorm, "forward", forward)]
 
 
-PATCHES = {"f32-weight-grads": f32_weight_grads, "view-halves": view_halves, "batchnorm-f32-sums": batchnorm_f32_sums}
+PATCHES = {"view-halves": view_halves, "batchnorm-f32-sums": batchnorm_f32_sums}
 
 
 @contextlib.contextmanager
@@ -3491,49 +3475,6 @@ def patched(*names):
     finally:
         for module, attr, value in reversed(saved):
             setattr(module, attr, value)
-
-
-def mesh_diagnostic_phase(dev):
-    """``python3 chip_smoke.py --mesh-diagnostic``: where the bf16 mesh
-    runs' distance from one device comes from (c and d of
-    MULTIDEVICE_RUNS; the first call's gradients, per-parameter distance,
-    worst by group). Each run on one device, on one device with its frames
-    rotated (the control) and on two ranks, as shipped and with the
-    encoders' weight gradients in float32 (``f32-weight-grads``); d also
-    on one device with the warp in the ranks' halves of the views
-    (``view-halves``), alone and with float32 weight gradients. Nothing
-    is held to a limit: it prints readings."""
-    import shutil
-    import tempfile
-
-    tmp = Path(tempfile.mkdtemp(prefix="vsta_meshdiag_"))
-    try:
-        for run in ("c", "d"):
-            cfg = multidevice_config(run)
-            for patches in ((), ("f32-weight-grads",)):
-                with patched(*patches):
-                    ref = multidevice_steps(cfg, dev)
-                    rot = multidevice_steps(cfg, dev, rotate=True)
-                    halves = None
-                    if run == "d":
-                        with patched("view-halves"):
-                            halves = multidevice_steps(cfg, dev)
-                torch.cuda.empty_cache()
-                ranks, _, wall = spawn_ranks(run, tmp, patches)
-                mesh = ranks[0]
-                same = all(torch.equal(mesh["grads"][k], r["grads"][k]) for r in ranks[1:] for k in mesh["grads"])
-                label = "+".join(patches) or "as shipped"
-                line = (f"[mesh-diag] {run} ({label}): mesh vs one device "
-                        f"{worst_by_group(grad_distance(mesh['grads'], ref['grads']))}; frames rotated vs one device "
-                        f"{worst_by_group(grad_distance(rot['grads'], ref['grads']))}")
-                if halves is not None:
-                    line += (f"; one device with the views' halves vs one device "
-                             f"{worst_by_group(grad_distance(halves['grads'], ref['grads']))}; mesh vs the views' halves "
-                             f"{worst_by_group(grad_distance(mesh['grads'], halves['grads']))}")
-                log(f"{line}; first losses mesh {mesh['losses'][0]:.6f}, one device {ref['losses'][0]:.6f}; "
-                    f"ranks' gradients bit-equal {same}; world's wall {wall:.1f}s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 BN_TIMING_CONFIGS = {"flagship": FLAGSHIP, "resnet50": ROOT / "configs" / "wildtrack_v1_resnet50.yaml"}
@@ -3578,6 +3519,50 @@ def bn_timing_phase(dev, calls=10, warm=2):
             f"{med['float64'][1]:.2f}, "
             f"in float32 {med['float32'][0]:.2f} / {med['float32'][1]:.2f}; events by turn "
             f"{json.dumps({k: [round(x, 2) for x in v] for k, v in device.items()})}")
+
+
+TIMING_BATCHES = (16, 1)
+
+
+def timing_phase(dev):
+    """``[timing]``: ``utils.timing.forward_decode_fps`` of the flagship as
+    it stands (bf16) with seed-0 weights on float32 frames from a numpy
+    seed (the JAX benchmark's input), at batch 16 and 1, beside
+    ``cuda_ms`` of the same call (the chain's step with its ``1e-30``
+    fold of a zero scalar); the step's scalar finite. The slope counts
+    the host's launches where the host is slower than the card (the
+    chain's calls are launched one by one; XLA runs its chain in one
+    program)."""
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.models import BEVNet
+    from vsta_tpu_torch.utils.timing import N_HI, N_LO, N_REPEAT, cuda_ms, forward_decode_fps, forward_decode_step
+
+    cfg = load_config(str(FLAGSHIP))
+    model = BEVNet.from_config(cfg)
+    model.load_state_dict(init_state_dict(cfg, 0))
+    model.to(dev).eval()
+    _, K, Rt = serve_inputs(cfg, max(TIMING_BATCHES), seed=0)
+    V, (H, W) = cfg.data.views, cfg.data.img_size
+    frames = np.random.default_rng(0).standard_normal((max(TIMING_BATCHES), V, H, W, 3)).astype(np.float32)
+    step = forward_decode_step(cfg, model)
+    zero = torch.zeros((), device=dev)
+    for B in TIMING_BATCHES:
+        images = torch.as_tensor(frames[:B], device=dev)
+        k, rt = torch.as_tensor(K[:B], device=dev), torch.as_tensor(Rt[:B], device=dev)
+        with torch.no_grad():
+            scalar = float(step(images + zero * 1e-30, k, rt))
+            fps = forward_decode_fps(cfg, model, images, k, rt)
+            ms = cuda_ms(lambda: step(images + zero * 1e-30, k, rt))
+        check(math.isfinite(scalar), f"[timing] batch {B}: the chained scalar is {scalar}")
+        check(math.isfinite(fps) and fps > 0, f"[timing] batch {B}: forward_decode_fps {fps}")
+        log(f"[timing] {FLAGSHIP.name} bf16 batch {B}: forward_decode_fps {fps:.2f} frames/s (chained slope, n "
+            f"{N_LO} and {N_HI}, best of {N_REPEAT}: {B / fps * 1e3:.3f} ms a call); cuda_ms of the same call "
+            f"{ms:.3f} ms ({B / ms * 1e3:.2f} frames/s); slope over cuda_ms {B / fps * 1e3 / ms:.3f}; "
+            f"scalar {scalar:.6g}")
+        del images, k, rt
+    del model
+    torch.cuda.empty_cache()
 
 
 TF32_HEATMAP_BOUND = 5e-3  # |heatmap with cuDNN's TF32 - without|: ten times the 4.9e-4 an H100 read (PERF.md)
@@ -3779,11 +3764,8 @@ def main() -> int:
     if "--baseline" in sys.argv:  # a comparison only: python3 chip_smoke.py --baseline DIR
         baseline_phase(dev, sys.argv[sys.argv.index("--baseline") + 1])
         return 0
-    if "--mesh-diagnostic" in sys.argv or "--bn-timing" in sys.argv:  # readings only
-        if "--mesh-diagnostic" in sys.argv:
-            mesh_diagnostic_phase(dev)
-        if "--bn-timing" in sys.argv:
-            bn_timing_phase(dev)
+    if "--bn-timing" in sys.argv:  # readings only
+        bn_timing_phase(dev)
         return 0
 
     t = time.perf_counter()
@@ -3844,6 +3826,9 @@ def main() -> int:
     t = time.perf_counter()
     tf32_phase(dev)
     log(f"[tf32] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    timing_phase(dev)
+    log(f"[timing] phase {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     overfit_phase()
     log(f"[overfit] phase {time.perf_counter() - t:.1f}s")

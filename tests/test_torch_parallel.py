@@ -6,7 +6,10 @@ script, one process a rank, ``torch.set_num_threads(1)`` in each): every
 case runs in it, and each rank writes its numpy results for the parent to
 read. The parent computes the references from the same weights (random
 numpy values on JAX's variable tree, moved through convert.py): the
-port's single-device run and JAX's ``make_mesh(1, 1)`` first loss.
+port's single-device run, on one thread as the ranks (oneDNN splits a
+convolution's sums by the thread count: at default threads the bf16
+cases' one device lay 3.1e-5 and 4.4e-5 from itself on one thread), and
+JAX's ``make_mesh(1, 1)`` first loss.
 
 Model: the JAX test's tiny config (``simple`` backbone, FEAT_DIM 8, BEV
 16x32) at batch 4 and 4 views of 32x48, so that both axes split; ms_max
@@ -15,9 +18,13 @@ steps a case.
 Boxes differ from frame to frame, so the loss's normalisers differ from
 shard to shard.
 
-The bf16 case: ms_max with USE_AMP on a 1x2 mesh (ranks 0 and 1), one
-step, against the port's single-device step and JAX's own 1x2 mesh
-against its 1x1 (test_bf16_view_mesh_holds_to_jax_mesh).
+The bf16 cases on a 1x2 mesh (ranks 0 and 1), one step each: ms_max and
+concat under WARP_IMPL pallas with USE_AMP, each against the port's
+single-device step, held within a limit taken from JAX's own 1x2 mesh
+against its 1x1 (test_bf16_view_mesh_holds_to_jax_mesh,
+test_bf16_pallas_view_mesh_holds_to_jax_mesh). On the same mesh, the
+f32 concat step's encoder calls and its gradients before the mesh's sum
+(test_view_ranks_encode_every_view).
 
 Last, every rank drives the entry points on a 2x2 mesh over a synthetic
 tree (10 frames, 2 views): ``run_training`` (2 steps and an eval), then
@@ -71,14 +78,14 @@ if __name__ != "__main__":  # the rank processes compile nothing of JAX
 WORLD = 4
 B, V, H, W = 4, 4, 32, 48
 SPE = 10  # steps per epoch of the optimizer's schedule
-BF16_MESH = (1, 2)  # the bf16 case's mesh: the views split over two ranks
-# its gradient distance (test_bf16_view_mesh_holds_to_jax_mesh), from the
-# port's own control: its one device with the frames rotated by one or two
-# places (BF16_ROTATIONS), the same function summed in another order, reads
-# at worst 6.22e-3 from these weights; the limit is 2.4 times that, and the
-# test holds the control under half of it
-BF16_MESH_LIMIT = 1.5e-2
-BF16_ROTATIONS = (1, 2)
+BF16_MESH = (1, 2)  # the bf16 cases' mesh: the views split over two ranks
+# the bf16 cases' limits on the gradient distance to one device's, from
+# JAX's own 1x2 mesh against its 1x1 at these weights (4.7e-9 for ms_max):
+# ms_max, whose program splits no sum over 'view', at 10 times JAX's
+# reading; pallas, whose warp sums its views over 'view' in both
+# packages, at twice it; each floored at 1e-7
+BF16_MESH_FACTOR = {"ms_max-bf16": 10.0, "pallas-bf16": 2.0}
+BF16_MESH_FLOOR = 1e-7
 
 # config name -> MODEL fields over the tiny config, image size, steps[,
 # RUNTIME fields]
@@ -90,10 +97,11 @@ CONFIGS = {
     "ms_max": ({"BACKBONE": "resnet18", "FUSION": "max", "OUT_INDEX": [1, 2], "WARP_IMPL": "gather"}, (H, W), 2),
     "ms_max-bf16": ({"BACKBONE": "resnet18", "FUSION": "max", "OUT_INDEX": [1, 2], "WARP_IMPL": "gather"}, (H, W), 1,
                     {"USE_AMP": True}),
+    "pallas-bf16": ({"WARP_IMPL": "pallas"}, (H, W), 1, {"USE_AMP": True}),
 }
 # on the CPU JAX runs WARP_IMPL pallas as the XLA warp, the function of
 # fused: one JAX run (and its weights) serves both
-JAX_TWIN = {"pallas": "concat", "ms_max-bf16": "ms_max"}
+JAX_TWIN = {"pallas": "concat", "ms_max-bf16": "ms_max", "pallas-bf16": "concat"}
 # case -> (config, mesh): each twin of tests/test_multichip.py
 CASES = {
     "data-parallel-4x1": ("concat", (4, 1)),
@@ -143,13 +151,12 @@ def host_batch(name, seed=0):
     }
 
 
-def run_port(name, state_dict, mesh=None, rotate=0):
+def run_port(name, state_dict, mesh=None):
     """The config's steps through the port: losses, the first call's
-    gradients and the final state dict, as numpy. ``rotate`` moves the
-    batch's frames by that many places."""
+    gradients and the final state dict, as numpy."""
     cfg = tcfg.from_dict(raw_config(name))
     state = create_state(cfg, state_dict, device="cpu", steps_per_epoch=SPE, mesh=mesh)
-    hb = {k: np.roll(v, rotate, axis=0) for k, v in host_batch(name).items()}
+    hb = host_batch(name)
     batch = hb if mesh is None else shard_batch(hb, mesh, "cpu")
     grads, update = {}, state.tx.update
 
@@ -166,6 +173,30 @@ def run_port(name, state_dict, mesh=None, rotate=0):
         "grads": grads,
         "state": {k: v.detach().numpy().copy() for k, v in state.model.state_dict().items()},
     }
+
+
+def encoder_probe(name, state_dict, mesh):
+    """One train step of ``name`` on ``mesh``: the [B, V] of the images of
+    each of the encoder's calls, and this rank's gradients as the step
+    hands them to the mesh's sum (``all_reduce_gradients``), as numpy."""
+    from vsta_tpu_torch.training import state as tstate
+
+    cfg = tcfg.from_dict(raw_config(name))
+    state = create_state(cfg, state_dict, device="cpu", steps_per_epoch=SPE, mesh=mesh)
+    seen, before = [], {}
+    state.model.encoder.register_forward_pre_hook(lambda mod, args: seen.append(tuple(args[0].shape[:2])))
+    reduce = tstate.all_reduce_gradients
+
+    def spy(grads, m):
+        before.update({k: v.detach().numpy().copy() for k, v in grads.items()})
+        return reduce(grads, m)
+
+    tstate.all_reduce_gradients = spy
+    try:
+        make_train_step(cfg)(state, shard_batch(host_batch(name), mesh, "cpu"))
+    finally:
+        tstate.all_reduce_gradients = reduce
+    return {"seen": seen, "before": before}
 
 
 # the entry points on a synthetic tree: run_training, .evaluate, .inference
@@ -288,10 +319,12 @@ def _rank_main(outdir: Path) -> None:
     for case, (name, (nd, nv)) in CASES.items():
         mesh = make_mesh(nd, nv, batch_size=B, views=V)
         rec["cases"][case] = run_port(name, weights[name], mesh)
-    # the bf16 case on ranks 0 and 1; ranks 2 and 3 lie outside the mesh
+    # the bf16 cases and the encoder's probe on ranks 0 and 1; ranks 2
+    # and 3 lie outside the mesh
     mesh = make_mesh(*BF16_MESH, batch_size=B, views=V)
     if mesh.member:
-        rec["bf16"] = run_port("ms_max-bf16", weights["ms_max-bf16"], mesh)
+        rec["bf16"] = {name: run_port(name, weights[name], mesh) for name in BF16_MESH_FACTOR}
+        rec["probe"] = encoder_probe("concat", weights["concat"], mesh)
 
     # the int8 head's eval on 4x1 against 1x1
     from vsta_tpu_torch.export import calibrate_quant_head
@@ -407,7 +440,7 @@ def _jax_first_gradients(name, variables, mesh_shape):
     _, mesh, loss = _jax_train_loss(name, mesh_shape)
     v = jax.device_put(jax.tree.map(jnp.asarray, variables), replicate_sharding(mesh))
     grad = jax.jit(jax.grad(lambda params, stats, batch: loss({"params": params, "batch_stats": stats}, batch)))
-    g = grad(v["params"], v["batch_stats"], jshard_batch(host_batch(name), mesh))
+    g = grad(v["params"], v.get("batch_stats", {}), jshard_batch(host_batch(name), mesh))
     return {k: t.numpy() for k, t in params_from_flax(jax.tree.map(lambda a: np.asarray(a, np.float32), g)).items()}
 
 
@@ -418,7 +451,7 @@ def world(tmp_path_factory):
     outdir = tmp_path_factory.mktemp("world")
     jax_runs = {name: _jax_run(name) for name in CONFIGS if name not in JAX_TWIN}
     weights = {name: jax_runs[JAX_TWIN.get(name, name)][0] for name in CONFIGS}
-    bf16_vars = jax_runs[JAX_TWIN["ms_max-bf16"]][2]
+    bf16_vars = {name: jax_runs[JAX_TWIN[name]][2] for name in BF16_MESH_FACTOR}
     (outdir / "weights.pkl").write_bytes(pickle.dumps(weights))
     generate_synthetic_wildtrack(outdir / "tree", n_frames=LOOP_FRAMES, n_views=2, n_people=3, img_hw=(108, 192))
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(WORLD))
@@ -432,10 +465,17 @@ def world(tmp_path_factory):
     ]
     try:
         first = {name: run() for name, (_, run, _) in jax_runs.items()}
-        jax_bf16 = {shape: _jax_first_gradients("ms_max-bf16", bf16_vars, shape) for shape in ((1, 1), BF16_MESH)}
+        jax_bf16 = {
+            name: {shape: _jax_first_gradients(name, bf16_vars[name], shape) for shape in ((1, 1), BF16_MESH)}
+            for name in BF16_MESH_FACTOR
+        }
         want_jax = {name: first[JAX_TWIN.get(name, name)] for name in CONFIGS}
-        single = {name: run_port(name, weights[name]) for name in CONFIGS}
-        single["bf16-rotated"] = [run_port("ms_max-bf16", weights["ms_max-bf16"], rotate=r) for r in BF16_ROTATIONS]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # as the ranks: oneDNN splits a convolution's sums by the thread count
+        try:
+            single = {name: run_port(name, weights[name]) for name in CONFIGS}
+        finally:
+            torch.set_num_threads(threads)
         with pytest.MonkeyPatch.context() as mp:  # as in the ranks: no TensorBoard
             mp.setitem(sys.modules, "torch.utils.tensorboard", None)
             single["loop"] = run_training(tcfg.from_dict(loop_raw(outdir / "tree", outdir / "single", (1, 1))),
@@ -541,46 +581,72 @@ def grad_distance(got, want):
     return max(float(np.linalg.norm(got[k].astype(np.float64) - w)) / max(norms[k], floor) for k, w in want.items())
 
 
-def test_bf16_view_mesh_holds_to_jax_mesh(world):
-    """ms_max (ResNet-18, OUT_INDEX (1, 2), FUSION max) in bf16 on a 1x2
-    mesh, one step from the same weights in both packages: the first
-    call's gradients against one device's, read the same way on each side
-    (the worst per-parameter distance).
-
-    Readings on the CPU from these weights (tiny shapes, batch 4, 4 views):
-    JAX's 1x2 mesh lies 4.7e-9 from its 1x1 (GSPMD gathers the images and
-    runs the encoder whole on both devices, so no sum is split); JAX's one
-    device with its frames rotated by one or two places 1.05e-1 and
-    1.25e-1 (the f32 BatchNorm sums, summed in another order, and the bf16
-    output). The port summed BatchNorm's statistics in two f32 halves
-    over the mesh and lay 8.7e-2 from one device (9.0e-2 and 4.7e-3 with
-    its frames rotated). Since the sums accumulate in float64
-    (``models/encoders/norm.py``) the statistics come out as one
-    device's, bit for bit, and the mesh lies 6.22e-3 from one device, as
-    far as its own one device with the frames rotated (4.73e-3 and
-    6.22e-3: the bf16 gradients summed over the images in another order).
-    So the port's mesh splits sums that JAX's does not, and lies about 1e6
-    times further from one device than JAX's; the limit therefore comes
-    from the port's own control: BF16_MESH_LIMIT 1.5e-2, 2.4 times the
-    worst rotated-frames reading, which the test reads again and holds
-    under half the limit. JAX's reading (4.7e-9) is reported, not a limit.
-    The parent's mesh (8.7e-2) and its control (9.0e-2) both fail. The
+def _bf16_view_mesh(world, name):
+    """The first call's gradients of the bf16 case ``name`` on the 1x2
+    mesh against the port's one device, and JAX's 1x2 mesh against its
+    1x1, read the same way (the worst per-parameter distance); the limit
+    BF16_MESH_FACTOR times JAX's reading, floored at BF16_MESH_FLOOR. The
     first loss at rtol 2e-4, as the f32 cases, and the first call's
-    BatchNorm statistics bit-equal to one device's."""
-    ranks, _, single, jax_bf16 = world[0], world[1], world[2], world[5]
-    want = single["ms_max-bf16"]
-    d_jax = grad_distance(jax_bf16[BF16_MESH], jax_bf16[(1, 1)])
-    control = max(grad_distance(rot["grads"], want["grads"]) for rot in single["bf16-rotated"])
-    assert control <= BF16_MESH_LIMIT / 2, control
+    BatchNorm statistics (where the model has any) bit-equal to one
+    device's."""
+    ranks, single, jax_bf16 = world[0], world[2], world[5]
+    want = single[name]
+    d_jax = grad_distance(jax_bf16[name][BF16_MESH], jax_bf16[name][(1, 1)])
+    limit = max(BF16_MESH_FACTOR[name] * d_jax, BF16_MESH_FLOOR)
     stats = [k for k in want["state"] if k.endswith(("running_mean", "running_var"))]
-    assert stats and [r["rank"] for r in ranks if "bf16" in r] == [0, 1]
+    assert [r["rank"] for r in ranks if "bf16" in r] == [0, 1]
     for rec in ranks[:2]:
-        got = rec["bf16"]
+        got = rec["bf16"][name]
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-4)
         d_port = grad_distance(got["grads"], want["grads"])
-        assert d_port <= BF16_MESH_LIMIT, (d_port, control, d_jax)
-        for k in stats:  # after the first call: its batch statistics, summed over the mesh
+        assert d_port <= limit, (d_port, d_jax, limit)
+        for k in stats:  # after the first call: its batch statistics, summed over 'data'
             assert got["state"][k].tobytes() == want["state"][k].tobytes(), k
+    return stats
+
+
+def test_bf16_view_mesh_holds_to_jax_mesh(world):
+    """ms_max (ResNet-18, OUT_INDEX (1, 2), FUSION max) in bf16 on a 1x2
+    mesh, one step from the same weights in both packages.
+
+    Readings on the CPU from these weights (tiny shapes, batch 4, 4 views):
+    JAX's 1x2 mesh lies 4.7e-9 from its 1x1. Its compiled program gathers
+    the images (and the sample coordinates) over 'view' and runs the
+    encoder and the fusion whole on both devices, so no sum is split. The
+    port's mesh partitions so too (every view rank encodes B x V images,
+    BatchNorm sums over 'data'), and its gradients are one device's bit for
+    bit. The limit is ten times JAX's reading, floored at 1e-7."""
+    assert _bf16_view_mesh(world, "ms_max-bf16")
+
+
+def test_bf16_pallas_view_mesh_holds_to_jax_mesh(world):
+    """The concat fusion under WARP_IMPL pallas in bf16 on a 1x2 mesh: the
+    one sum both packages split over 'view', the warp's sum over the
+    views, each rank warping its two. The port's mesh against its one
+    device within twice JAX's 1x2 mesh against its 1x1, floored at 1e-7.
+    Read from these weights: the port 3.68e-2, JAX 3.45e-2 (its CPU
+    program splits the warp's view contraction in f32 and rounds the sum
+    to bf16; the port rounds each rank's half, as JAX's shard_map does on
+    the TPU)."""
+    _bf16_view_mesh(world, "pallas-bf16")
+
+
+def test_view_ranks_encode_every_view(world):
+    """On the 1x2 mesh (f32 concat, WARP_IMPL fused) each rank's encoder
+    runs once on all B x V images, and the gradients each rank hands to
+    the mesh's sum are whole, not the rank's part of a sum over 'view':
+    bit-equal across the two view ranks, and every parameter's within
+    1e-3 of its norm of one device's, as test_gradients_match_single_device
+    holds the f32 cases (read 6.5e-5, in the encoder's: the warp's f32 view
+    sum split in two moves them by rounding; a half-sum would read 0.5)."""
+    ranks, single = world[0], world[2]
+    want = single["concat"]["grads"]
+    a, b = (rec["probe"] for rec in ranks[:2])
+    assert a["seen"] == b["seen"] == [(B, V)]
+    assert any(k.startswith("encoder.") for k in want)
+    for k, w in want.items():
+        assert a["before"][k].tobytes() == b["before"][k].tobytes(), k
+    assert grad_distance(a["before"], want) <= 1e-3
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -37,15 +37,18 @@ Inputs and outputs are channels-last, as in the JAX package.
 gradient at the encoder's output.
 
 On a sharded :class:`~vsta_tpu_torch.parallel.mesh.Mesh` (``mesh=``) each
-rank takes its slice of the batch and of the views. The model computes
-what it computes on one device for the global batch: concat under the
-fused warps sums the views over the mesh
-(:func:`~vsta_tpu_torch.parallel.warp_shard.warp_proj_sharded`); every
-other reduction over the views (the unfused fusions, the deformable
-fusion's softmax over (view, point) and its value maps) runs on the
-views gathered from the view axis, bit for bit; train-mode BatchNorm
-takes its statistics over the whole mesh; static cameras take the global
-frame 0's calibration.
+rank takes its slice of the batch and of the views, and partitions the
+model as JAX's compiled mesh program does: the images (and the
+calibrations) are gathered over 'view', so every rank runs the encoder on
+all the views of its frames; concat under the fused warps, and the
+deformable fusion's warped query, warp this rank's views and sum them
+over 'view' (:func:`~vsta_tpu_torch.parallel.warp_shard.warp_proj_sharded`:
+the one sum split over 'view'); every other reduction over the views
+(the unfused fusions, the deformable fusion's softmax over (view, point)
+and its value maps) runs on every view on every rank; train-mode
+BatchNorm takes its statistics over 'data' (a data group's view ranks
+hold the same images); static cameras take the global frame 0's
+calibration.
 """
 
 from __future__ import annotations
@@ -174,7 +177,7 @@ class BEVNet(nn.Module):
         mean = torch.as_tensor(IMAGENET_MEAN) * 255.0
         self.register_buffer("img_mean", mean, persistent=False)
         self.register_buffer("img_scale", 1.0 / (torch.as_tensor(IMAGENET_STD) * 255.0), persistent=False)
-        if self.sharded:  # train-mode statistics over the whole mesh
+        if self.sharded:  # train-mode statistics over 'data'
             for mod in self.encoder.modules():
                 if isinstance(mod, BatchNorm):
                     mod.mesh = mesh
@@ -224,7 +227,8 @@ class BEVNet(nn.Module):
         """images [B, V, H, W, 3] uint8 or float; K [B, V, 3, 3]; Rt
         [B, V, 4, 4] world->camera (with static cameras frame 0's calibration
         serves the batch; on a sharded mesh, this rank's frames and views).
-        Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32;
+        On a sharded mesh the images, K and Rt are gathered over 'view'
+        first. Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32;
         with ``return_per_view`` the unfused fusions add every view's BEV map,
         'bev_per_view' [B, V, Hb, Wb, C], as the JAX package does.
         ``quant_head`` / ``quant_encoder``: int8 serving trees
@@ -234,6 +238,8 @@ class BEVNet(nn.Module):
         B, V, H, W, _ = images.shape
         if V != self.local_views:
             raise ValueError(f"model built for {self.local_views} views a rank, got {V}")
+        if self.sharded:  # every view of this rank's frames, as JAX's program gathers them
+            images, K, Rt = (gather(t, self.mesh, "view", 1) for t in (images, K, Rt))
         Hb, Wb = self.bev_size
         dev = images.device
         if images.dtype == torch.uint8:
@@ -275,8 +281,6 @@ class BEVNet(nn.Module):
             bev_main = self._concat(feats, enc_pk, enc_pb, coords)
         else:
             per_view = self.per_view(feats, coords)
-            if self.sharded:  # every view's map, for the reductions over views
-                per_view = gather(per_view, self.mesh, "view", 1)
             bev_main = self.fuse_views(per_view)
         bev_feat = torch.cat([bev_main, pos.to(bev_main.dtype)], dim=-1)
         if quant_head is not None:
@@ -292,10 +296,6 @@ class BEVNet(nn.Module):
         """The warped-sum query plus the deformable fusion's residual."""
         query = self.warped_query(feats, coords)
         q_in = torch.cat([query, pos.to(query.dtype)], dim=-1)
-        if self.sharded:  # the softmax over (view, point) and the value maps see every view
-            vdim = coords.ndim - 4
-            feats = gather(feats, self.mesh, "view", 1)
-            coords, depth_w = gather(coords, self.mesh, "view", vdim), gather(depth_w, self.mesh, "view", vdim)
         return query + self.attention_residual(feats, coords, depth_w, q_in)
 
     def warped_query(self, feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

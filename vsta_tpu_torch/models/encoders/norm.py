@@ -35,11 +35,11 @@ class BatchNorm(nn.BatchNorm2d):
     (``tests/test_torch_parallel.py``, the bf16 mesh case).
 
     ``mesh`` (set by a sharded ``BEVNet``): in training the statistics
-    cover the whole mesh, as JAX's jit computes them over the sharded
-    B*V images: one differentiable all-reduce of the float64 sums, over a
-    count of the local count times the mesh's ranks (every rank holds as
-    many images). The statistics come out as one device's, and the
-    running statistics equal on every rank.
+    cover the 'data' axis, as JAX's compiled mesh program sums them: every
+    view rank of a data group encodes the same B/n_data x V images, so one
+    differentiable all-reduce of the float64 sums over 'data', over a
+    count of the local count times ``n_data``. The statistics come out as
+    one device's, and the running statistics equal on every rank.
     """
 
     mesh = None
@@ -58,7 +58,7 @@ class BatchNorm(nn.BatchNorm2d):
         sums = torch.stack([xf.sum(dim=dims, dtype=f64), (xf * xf).sum(dim=dims, dtype=f64)])
         count = xf.numel() // xf.shape[1]
         if self.mesh is not None:
-            sums, count = all_reduce_sum(sums, self.mesh, "mesh"), count * self.mesh.size
+            sums, count = all_reduce_sum(sums, self.mesh, "data"), count * self.mesh.n_data
         mean, sq = (sums / count).float()
         var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():

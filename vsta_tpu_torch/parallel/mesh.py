@@ -6,14 +6,18 @@ One process a device. The ranks of a mesh of ``n_data x n_view`` sit at
 ``reshape(n_data, n_view)``:
 
 * 'data' splits the batch: each rank takes ``B / n_data`` frames;
-* 'view' splits the cameras: each rank encodes and warps ``V / n_view``
-  views, and the sum over views crosses the ranks of its data group
+* 'view' splits the cameras of the host batch, and the model partitions
+  them as JAX's compiled mesh program does: each rank gathers the images
+  of its data group over 'view' and encodes every view of its frames,
+  then warps its ``V / n_view`` views, and the warp's sum over the views
+  crosses the ranks of its data group
   (:mod:`~vsta_tpu_torch.parallel.warp_shard`).
 
-Parameters are replicated and every rank's gradients are summed over the
-mesh, so each one equals the single-device gradient of the global batch
-(``training/state.py``). A process with no process group is the 1x1 mesh:
-it makes no collective and runs the single-device code as it is.
+Parameters are replicated; every view rank holds the whole gradients of
+its frames, and they are summed over 'data', so the gradients on every
+rank equal the single-device gradients of the global batch
+(``training/state.py``). A process with no process group is the 1x1
+mesh: it makes no collective and runs the single-device code as it is.
 
 Launch: ``torchrun --nproc_per_node N -m vsta_tpu_torch.train --config
 C`` with ``RUNTIME.MESH_DATA`` / ``MESH_VIEW`` set; :func:`init_distributed`

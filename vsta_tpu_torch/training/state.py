@@ -17,12 +17,18 @@ or float), 'K' [B, V, 3, 3], 'Rt' [B, V, 4, 4], 'boxes_world' [B, N, 4]
 On a sharded mesh (``create_state(..., mesh=)``) the batch is this rank's
 part (``parallel.shard_batch``). The loss's normalisers are summed over
 'data', so a data shard's loss is its part of the global batch's. Every
-view rank of a data group computes the same head and loss, and the
-backward of the view sum adds their cotangents: each rank backpropagates
-its loss over ``n_view``, and the gradients are summed over the whole
-mesh. Then each rank holds the single-device gradients of the global
-batch, and the parameters and Adam's state stay equal across ranks. The
-metrics are the global batch's.
+view rank of a data group computes the same encoder, head and loss, and
+backpropagates that loss as it is: the warp's view sum passes the
+cotangent through, and the slices of the views it warped gather their
+cotangents back over 'view' (``parallel.warp_shard``), so each view rank
+holds the whole gradients of its frames, the same on every view rank.
+One all-reduce over the mesh, in which only the first view rank of each
+data group adds its gradients (the others add zeros), then sums them
+over 'data': each rank holds the single-device gradients of the global
+batch, with no gradient counted ``n_view`` times and no division by
+``n_view`` (exact for any ``n_view``, 3 included), and the parameters
+and Adam's state stay equal across ranks. The metrics are the global
+batch's.
 """
 
 from __future__ import annotations
@@ -135,10 +141,15 @@ def gradients(model: BEVNet, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def all_reduce_gradients(grads: Mapping[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """Every rank's gradients summed over the mesh, as one flat f32 buffer
-    in a fixed order: each rank gets the same bits."""
+    """The data shards' gradients summed over 'data', as one flat f32
+    buffer in a fixed order, all-reduced over the mesh with the view
+    ranks past the first adding zeros (they hold the same gradients):
+    each rank gets the same bits."""
     names = list(grads)
-    flat = sum_no_grad(torch.cat([grads[n].float().reshape(-1) for n in names]), mesh, "mesh")
+    flat = torch.cat([grads[n].float().reshape(-1) for n in names])
+    if mesh.view_index != 0:
+        flat = torch.zeros_like(flat)
+    flat = sum_no_grad(flat, mesh, "mesh")
     out, at = {}, 0
     for n in names:
         g = grads[n]
@@ -172,7 +183,7 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Batch], Metrics]:
             grads = gradients(model, losses["total_loss"])
         else:
             mesh = model.mesh
-            grads = all_reduce_gradients(gradients(model, losses["total_loss"] / mesh.n_view), mesh)
+            grads = all_reduce_gradients(gradients(model, losses["total_loss"]), mesh)
             metrics = {k: sum_no_grad(v, mesh, "data") for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         apply_gradients(state, grads)
