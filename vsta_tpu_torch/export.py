@@ -49,6 +49,7 @@ from .models.encoders.resnet import RESNET_SPECS
 from .ops.quant import quantize_head, tree_to
 from .ops.quant_resnet import quantize_encoder
 from .serving import build_serving_fn, resolve_device
+from .utils import tracing
 
 __all__ = [
     "build_serving_fn", "calibrate", "calibrate_quant_head", "calibrate_quant_encoder", "export_serving",
@@ -269,13 +270,18 @@ class Serving:
     buffers, the graph replays, and the outputs are cloned, so the next
     request does not overwrite them. On the CPU it runs eagerly.
     ``model``, ``batch_size``, ``manifest`` and ``graph`` (None on the
-    CPU) describe it.
+    CPU) describe it. The graph carries the stage marks of the serving
+    function (``vsta_stage_encoder`` … ``vsta_stage_end``,
+    :mod:`~vsta_tpu_torch.utils.tracing`), so a replay's device trace
+    names its stages; a call is the host span ``serve``, tagged with
+    ``requests``, the count of calls before it.
     """
 
     def __init__(self, fn, specs, dev: torch.device, manifest: Dict, batch_size: int, example: List[torch.Tensor]):
         self.fn, self.specs, self.device = fn, specs, dev
         self.model, self.manifest, self.batch_size = fn.model, manifest, batch_size
         self.graph = None
+        self.requests = 0
         if dev.type == "cuda":
             self._capture(example)
 
@@ -317,13 +323,15 @@ class Serving:
         return out
 
     def __call__(self, images, K, Rt) -> Dict[str, torch.Tensor]:
-        args = self._check((images, K, Rt))
-        if self.graph is None:
-            return self.fn(*args)
-        for buf, a in zip(self._inputs, args):
-            buf.copy_(a, non_blocking=a.device.type == "cpu" and a.is_pinned())
-        self.graph.replay()
-        return {k: v.clone() for k, v in self._outputs.items()}
+        request, self.requests = self.requests, self.requests + 1
+        with tracing.span("serve", request):
+            args = self._check((images, K, Rt))
+            if self.graph is None:
+                return self.fn(*args)
+            for buf, a in zip(self._inputs, args):
+                buf.copy_(a, non_blocking=a.device.type == "cpu" and a.is_pinned())
+            self.graph.replay()
+            return {k: v.clone() for k, v in self._outputs.items()}
 
 
 def load_serving(path: str | Path, device: str | torch.device = "cuda") -> Serving:

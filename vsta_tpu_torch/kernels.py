@@ -107,7 +107,12 @@ def wrappers(ablation: bool = True) -> tuple:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count in this process, by name."""
+    """Every kernel wrapper's launch count in this process, by name: the
+    launches through the wrappers, in eager calls and at a CUDA graph's
+    capture, never on a replay, which runs no Python. A replay's launches
+    are read from the device trace, by kernel name (the benchmark's
+    ``warp_tiles_roofline`` counts ``tile_kernel`` so). The stage markers
+    (``utils/tracing.py``) are not model kernels and are not counted."""
     return {f.__name__: f.launches for f in wrappers()}
 
 

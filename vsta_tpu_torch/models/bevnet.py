@@ -32,7 +32,10 @@ per-frame cameras (every frame warps under its own ``K``, ``Rt``):
   (:class:`~vsta_tpu_torch.models.fusion.AttentionFusion`), the last four
   followed by the 1x1 ``bev_proj``.
 
-Inputs and outputs are channels-last, as in the JAX package.
+Inputs and outputs are channels-last, as in the JAX package. The
+forward marks its stages on the device (:func:`~vsta_tpu_torch.utils.tracing.mark`):
+``encoder`` (the normalization and the encoder), ``fusion`` (the
+geometry, the warp or fusion and the positional channels), ``head``.
 ``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and cuts the
 gradient at the encoder's output.
 
@@ -70,6 +73,7 @@ from ..ops.warp_views_cuda import warp_views_sum
 from ..parallel.collectives import gather
 from ..parallel.mesh import ACTIVE, get_active_mesh
 from ..parallel.warp_shard import warp_proj_sharded
+from ..utils import tracing
 from .encoders.encoder import ViewEncoder
 from .encoders.norm import BatchNorm
 from .fusion import AttentionFusion, DeformableFusion, Dense, simple_fusion
@@ -242,6 +246,7 @@ class BEVNet(nn.Module):
             images, K, Rt = (gather(t, self.mesh, "view", 1) for t in (images, K, Rt))
         Hb, Wb = self.bev_size
         dev = images.device
+        tracing.mark("encoder", images)
         if images.dtype == torch.uint8:
             images = (images.float() - self.img_mean) * self.img_scale
 
@@ -263,6 +268,7 @@ class BEVNet(nn.Module):
         if self.freeze_backbone:
             feats = feats.detach()
         _, _, Hf, Wf, _ = feats.shape
+        tracing.mark("fusion", feats)
         grid = ground_grid(Hb, Wb, self.bev_bounds, device=dev)
         if self.static_cameras:  # [V, Hb, Wb, ...]: one calibration for the batch
             K0, Rt0 = K[0], Rt[0]
@@ -283,6 +289,7 @@ class BEVNet(nn.Module):
             per_view = self.per_view(feats, coords)
             bev_main = self.fuse_views(per_view)
         bev_feat = torch.cat([bev_main, pos.to(bev_main.dtype)], dim=-1)
+        tracing.mark("head", bev_feat)
         if quant_head is not None:
             out = apply_quant_head(quant_head, bev_feat.float())
         else:

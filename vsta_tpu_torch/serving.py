@@ -17,6 +17,7 @@ from .config import Config
 from .models.bevnet import BEVNet
 from .ops.decode import decode_detections
 from .ops.quant import tree_to
+from .utils import tracing
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -44,7 +45,9 @@ def build_serving_fn(
     ``serve.model`` is the :class:`BEVNet` it runs. ``quant_head`` /
     ``quant_encoder``: int8 trees from ``export.calibrate_quant_head`` /
     ``calibrate_quant_encoder``, moved to the device; that stage then runs
-    in int8.
+    in int8. The device trace of a call names its stages
+    (:mod:`~vsta_tpu_torch.utils.tracing`): the model's ``encoder``,
+    ``fusion`` and ``head``, then ``decode`` and ``end``.
     """
     dev = resolve_device(device)
     model = BEVNet.from_config(cfg)
@@ -60,11 +63,13 @@ def build_serving_fn(
         K = torch.as_tensor(K, device=dev, dtype=torch.float32)
         Rt = torch.as_tensor(Rt, device=dev, dtype=torch.float32)
         out = model(images, K, Rt, quant_head=qh, quant_encoder=qe)
+        tracing.mark("decode", out["heatmap"])
         det = decode_detections(
             out["heatmap"], out["offset"], out["size"],
             bounds=m.bev_bounds, conf_thresh=e.conf_thresh,
             nms_dist_m=e.nms_dist_m, max_dets=e.max_dets,
         )
+        tracing.mark("end", det["boxes"])
         return {
             "boxes": det["boxes"],
             "scores": det["scores"],

@@ -47,6 +47,7 @@ from ..ops.losses import detection_loss
 from ..ops.splat import build_targets
 from ..parallel.collectives import gather, sum_no_grad
 from ..serving import resolve_device
+from ..utils import tracing
 from .optim import OptState, Optimizer, build_optimizer
 
 Batch = Mapping[str, object]
@@ -172,21 +173,29 @@ def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor]) -> boo
 def make_train_step(cfg: Config) -> Callable[[TrainState, Batch], Metrics]:
     """Returns ``train_step(state, batch) -> metrics``: the four losses and
     ``grad_norm`` (the global L2 norm of this call's gradients), as 0-dim
-    device tensors."""
+    device tensors. The forward marks its stages on the device and the
+    step marks ``end`` after the loss, so the backward lies outside them;
+    a call is the host spans ``train.loss`` (targets, forward, loss),
+    ``train.backward`` and ``train.optimizer``, each tagged with
+    ``state.step`` (:mod:`~vsta_tpu_torch.utils.tracing`)."""
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
         b = batch_to_device(batch, state.device)
         model = state.model
-        losses = loss_fn(cfg, model, b)
+        with tracing.span("train.loss", state.step):
+            losses = loss_fn(cfg, model, b)
+            tracing.mark("end", losses["total_loss"])
         metrics = {k: v.detach() for k, v in losses.items()}
-        if not model.sharded:
-            grads = gradients(model, losses["total_loss"])
-        else:
-            mesh = model.mesh
-            grads = all_reduce_gradients(gradients(model, losses["total_loss"]), mesh)
-            metrics = {k: sum_no_grad(v, mesh, "data") for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
-        apply_gradients(state, grads)
+        with tracing.span("train.backward", state.step):
+            if not model.sharded:
+                grads = gradients(model, losses["total_loss"])
+            else:
+                mesh = model.mesh
+                grads = all_reduce_gradients(gradients(model, losses["total_loss"]), mesh)
+                metrics = {k: sum_no_grad(v, mesh, "data") for k, v in metrics.items()}
+        with tracing.span("train.optimizer", state.step):
+            metrics["grad_norm"] = global_norm(grads)
+            apply_gradients(state, grads)
         return metrics
 
     return train_step
