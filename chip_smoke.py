@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline DIR   # kernel rows 1, 2, 4, 5, 7 of the checkout in DIR beside these
     python3 chip_smoke.py --bn-timing        # train-step time with BatchNorm's sums in float64 and float32
+    python3 chip_smoke.py --bn-act           # the one-pass eval BatchNorm kernel (phase 9's second half) alone
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -95,7 +96,18 @@ Phases, each of which raises on failure (exit code != 0):
 9. the ablation variants of the warp kernel (warp_tiles_variant: full,
    const_weights, row0, no_gather) at K = 2,048, bf16 and f32, each against
    its plain version, 'full' bit-equal to warp_tiles, and one line of the
-   four times;
+   four times; then the port's own kernel, the eval BatchNorm with its
+   SiLU in one pass (bn_act, csrc/bn_act.cu), against its plain version
+   (f32 BatchNorm, cast, SiLU) at the 15 shapes of the flagship trunk's
+   eval BatchNorms (from hooks on the trunk) at 112 and 7 images, both
+   layouts, with and without SiLU, at ResNet-50's 2,048 channels and at an
+   odd element offset: twice, bit-equal, bit-equal to the same arithmetic
+   in PyTorch's ops (Flax's order), 99.9 % bit-equal to the plain version
+   (its largest distance in ulps logged); the 15 timed as the model runs
+   them (device time, a CUDA graph of 20 launches) against 4 bytes an
+   element at 3.35 TB/s; bn_act launches 15 times a bf16 B0 request in
+   every serving phase below (BN_ACT_A_REQUEST), and the plain-version
+   runs of the heatmap checks take its plain version too;
 10. determinism: the deform family's residual upsample backward twice,
    bit-equal, and the ops that torch.use_deterministic_algorithms(True,
    warn_only=True) names in one train step of each config (the ResNet
@@ -181,7 +193,7 @@ Phases, each of which raises on failure (exit code != 0):
    ``--overlap``; their processes' launches (``VSTA_TORCH_LAUNCH_LOG``)
    count into the kernels line.
 
-Prints the kernels JSON line (eight kernels), the nvidia-smi line, then as the last line
+Prints the kernels JSON line (the eight TPU kernels' rows, then bn_act's), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
 and outside a checkout of the repository.
 """
@@ -667,6 +679,204 @@ def ablation_phase(dev):
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library["bfloat16"]["full"], "variants_ms": times, "variants_library_ms": library,
     }
+
+
+# -- the eval BatchNorm and its activation in one pass (csrc/bn_act.cu) ----
+
+BN_ACT_SRC = "vsta_tpu_torch/csrc/bn_act.cu"
+BN_ACT_BATCHES = (112, 7)  # the flagship's images a request at batch 16 and 1
+RESNET50_WIDE = (2048, 9, 15)  # ResNet-50's last stage at 270x480: C = 2,048, a plane of 135 (not 8-aligned)
+# eval BatchNorms a bf16 request runs, each one bn_act launch (B0 to stride 8:
+# the stem, stage 0's two, stages 1 and 2's six; ResNet-50 and -18 to their
+# OUT_INDEX); wildtrack_sanity is f32 and an int8 encoder folds its norms
+BN_ACT_A_REQUEST = {"flagship": 15, "flagship per-frame": 15, "deform": 15, "sanity": 0, "resnet50": 24,
+                    "ms_max": 10}
+COLD_BYTES = 200e6  # inputs cycled through per timed launch: four times the 50 MB L2
+
+
+def bn_act_shapes(dev):
+    """(C, H, W, act, layout) of every eval BatchNorm of the flagship's
+    trunk in one request, in order, from forward hooks on the B0 trunk (to
+    OUT_INDEX 2, bf16) over 7 channels-last 270x480 images, as
+    ``ViewEncoder`` hands them."""
+    from vsta_tpu_torch.models.encoders.efficientnet import EfficientNetFeatures
+    from vsta_tpu_torch.models.encoders.norm import BatchNorm
+    from vsta_tpu_torch.ops.bn_act_cuda import layout
+
+    trunk = EfficientNetFeatures(torch.bfloat16).to(dev).eval()
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, a, kw, out: seen.append(
+                 (*a[0].shape[1:], kw.get("act"), layout(a[0]))), with_kwargs=True)
+             for m in trunk.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        trunk(torch.zeros(7, 270, 480, 3, device=dev).permute(0, 3, 1, 2), 3)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def bn_act_inputs(dev, N, C, H, W, layout, seed, offset=0):
+    """x [N, C, H, W] bf16 in ``layout`` (``offset`` elements into its
+    buffer) drawn around per-channel running statistics, and the four
+    float32 vectors: the map normalises to about N(bias, weight^2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mean = 2.0 * torch.randn(C, generator=g, device=dev)
+    var = 4.0 * torch.rand(C, generator=g, device=dev) + 0.05
+    weight = 1.0 + 0.5 * torch.randn(C, generator=g, device=dev)
+    bias = 0.5 * torch.randn(C, generator=g, device=dev)
+    z = torch.randn(N * C * H * W, generator=g, device=dev)
+    buf = torch.empty(offset + z.numel(), dtype=torch.bfloat16, device=dev)
+    if layout == "nhwc":
+        x = buf[offset:].view(N, H, W, C).permute(0, 3, 1, 2)
+        x.copy_((z.view(N, H, W, C) * var.sqrt() + mean).permute(0, 3, 1, 2))
+    else:
+        x = buf[offset:].view(N, C, H, W)
+        x.copy_(z.view(N, C, H, W) * var.sqrt()[:, None, None] + mean[:, None, None])
+    return x, mean, var, weight, bias
+
+
+def bf16_ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in steps of the bf16 number line, elementwise (+0 and -0
+    the same point)."""
+    def order(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (order(a) - order(b)).abs()
+
+
+def flax_order_ref(x, mean, var, weight, bias, eps, act):
+    """The kernel's own arithmetic in PyTorch ops, each rounded on its own:
+    (x - mean) * (weight / sqrt(var + eps)) + bias in f32, bf16, SiLU."""
+    import torch.nn.functional as F
+
+    mul = (1.0 / torch.sqrt(var + eps)) * weight
+    y = ((x.float() - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]).to(torch.bfloat16)
+    return F.silu(y) if act == "silu" else y
+
+
+def bn_act_case(label, x, mean, var, weight, bias, eps, act):
+    """One case: two launches bit-equal; bit-equal to :func:`flax_order_ref`,
+    the kernel's arithmetic in PyTorch's own ops; against the plain version
+    (``F.batch_norm`` in f32: cuDNN's x * scale + shift on the card) at
+    least 99.9 % of elements bit-equal. The largest distance from the plain
+    version is logged with the largest |plain| among elements more than 1
+    ulp from it: where (x - mean) * mul + bias nears 0, the plain form
+    cancels terms as large as |mean * mul| in f32 and loses more than a
+    bf16 ulp of the small result; through SiLU a 1-ulp step grows by up
+    to |1 + x (1 - sigmoid(x))|, 3 at x = -4. Returns the largest distance
+    in ulps."""
+    from vsta_tpu_torch.ops.bn_act_cuda import bn_act, bn_act_ref
+
+    got = bn_act(x, mean, var, weight, bias, eps, act)
+    again = bn_act(x, mean, var, weight, bias, eps, act)
+    check(got.stride() == x.stride(), f"[bn_act] {label}: output strides {got.stride()} != input's {x.stride()}")
+    check(torch.equal(got, again), f"[bn_act] {label}: two launches differ")
+    ref = bn_act_ref(x, mean, var, weight, bias, eps, act)
+    ulps = bf16_ulps_apart(got, ref)
+    worst, same = int(ulps.max()), float((ulps == 0).float().mean())
+    far = ulps > 1
+    far_ref = float(ref.float().abs()[far].max()) if bool(far.any()) else 0.0
+    flax_same = float((bf16_ulps_apart(got, flax_order_ref(x, mean, var, weight, bias, eps, act)) == 0).float().mean())
+    ok = flax_same == 1.0 and same >= 0.999
+    log(f"[bn_act] {label}: {x.numel()} elements, {100 * flax_same:.4f} % bit-equal to the Flax-order ops; "
+        f"against the plain version {100 * same:.4f} % bit-equal, max {worst} bf16 ulp, {int(far.sum())} more "
+        f"than 1 apart (largest |plain| among them {far_ref:.3e}); two launches bit-equal {'ok' if ok else 'FAIL'}")
+    check(ok, f"[bn_act] {label}: {100 * flax_same:.4f} % bit-equal to the Flax-order ops, "
+              f"{100 * same:.4f} % to the plain version")
+    return worst
+
+
+def bn_act_times(dev, x, mean, var, weight, bias, eps, act, reps=20):
+    """(kernel ms, plain ms, bound ms) a launch, device time: ``reps``
+    launches captured in one CUDA graph (so no host overhead between them,
+    as in a replayed request), the input cycled through enough copies
+    (COLD_BYTES) that each launch reads it from device memory, not from
+    L2; the bound 4 bytes an element at HBM_BYTES_PER_S."""
+    from vsta_tpu_torch.ops.bn_act_cuda import bn_act, bn_act_ref
+    from vsta_tpu_torch.utils.timing import cuda_ms
+
+    nbytes = 2 * x.numel()
+    copies = [x] + [x.clone() for _ in range(max(0, math.ceil(COLD_BYTES / nbytes) - 1))]
+
+    def graph_ms(fn):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(x, mean, var, weight, bias, eps, act)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for r in range(reps):
+                fn(copies[r % len(copies)], mean, var, weight, bias, eps, act)
+        ms = cuda_ms(graph.replay, warmup=2, iters=5) / reps
+        del graph
+        return ms
+
+    return graph_ms(bn_act), graph_ms(bn_act_ref), 2 * nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bn_act_phase(dev):
+    """csrc/bn_act.cu against its plain version (``F.batch_norm`` in f32,
+    the cast, ``F.silu``) at the flagship's 15 eval BatchNorms (their
+    shapes from the trunk's hooks) at 112 images (batch 16) and 7 (batch
+    1), each in both layouts, with and without SiLU; at ResNet-50's 2,048
+    channels in both layouts (NCHW: the element-wise kernel, a plane of
+    135); channels-last at an odd element offset (the element-wise kernel
+    again): every case launched twice, bit-equal, and held to the plain
+    version by :func:`bn_act_case`'s rule. Then each of the
+    15 as the model runs it (channels-last, its own activation) timed at
+    112 and 7 images against its bound and the plain version's time. Returns
+    the kernels-line entry (ms, plain_ms, bound_ms: the 15 of a batch-16
+    request summed)."""
+    from vsta_tpu_torch.ops.bn_act_cuda import bn_act
+
+    shapes = bn_act_shapes(dev)
+    acts = [s[3] for s in shapes]
+    log(f"[bn_act] the flagship trunk's eval BatchNorms (C, H, W, act, layout): {shapes}")
+    check(len(shapes) == BN_ACT_A_REQUEST["flagship"] and acts.count("silu") == 10,
+          f"[bn_act] {len(shapes)} eval BatchNorms, {acts.count('silu')} with SiLU: expected 15 and 10")
+    check(all(s[4] == "nhwc" for s in shapes), "[bn_act] the trunk hands a BatchNorm a map that is not channels-last")
+    eps = 1e-3
+    worst, launches0 = 0, bn_act.launches
+    for i, (C, H, W, _, _) in enumerate(shapes):
+        for N in BN_ACT_BATCHES:
+            for lay in ("nhwc", "nchw"):
+                args = bn_act_inputs(dev, N, C, H, W, lay, seed=1000 + i)
+                for act in (None, "silu"):
+                    worst = max(worst, bn_act_case(f"#{i} N={N} C={C} {H}x{W} {lay} {act}", *args, eps, act))
+                del args
+    C, H, W = RESNET50_WIDE
+    for lay in ("nhwc", "nchw"):
+        args = bn_act_inputs(dev, 112, C, H, W, lay, seed=7)
+        for act in (None, "silu"):
+            worst = max(worst, bn_act_case(f"ResNet-50 N=112 C={C} {H}x{W} {lay} {act}", *args, 1e-5, act))
+    args = bn_act_inputs(dev, 112, 24, 68, 120, "nhwc", seed=8, offset=1)
+    worst = max(worst, bn_act_case("N=112 C=24 68x120 nhwc at an odd element offset", *args, eps, "silu"))
+    del args
+
+    totals = {}
+    for N in BN_ACT_BATCHES:
+        rows = []
+        for i, (C, H, W, act, _) in enumerate(shapes):
+            args = bn_act_inputs(dev, N, C, H, W, "nhwc", seed=2000 + i)
+            ms, plain_ms, bound_ms = bn_act_times(dev, *args, eps, act)
+            rows.append({"C": C, "HxW": f"{H}x{W}", "act": act, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                         "bound_ms": round(bound_ms, 4), "share": round(bound_ms / ms, 3)})
+            del args
+        totals[N] = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+        log(f"[bn_act] N={N}, the 15 as the model runs them (channels-last), ms a launch: {json.dumps(rows)}")
+        log(f"[bn_act] N={N}, a request's 15: kernel {totals[N]['ms']:.4f} ms, plain version "
+            f"{totals[N]['plain_ms']:.4f} ms, bound {totals[N]['bound_ms']:.4f} ms "
+            f"(share {totals[N]['bound_ms'] / totals[N]['ms']:.3f})")
+    C, H, W = RESNET50_WIDE
+    wide = {lay: bn_act_times(dev, *bn_act_inputs(dev, 112, C, H, W, lay, seed=9), 1e-5, None) for lay in ("nhwc", "nchw")}
+    log(f"[bn_act] ResNet-50 width N=112 C={C} {H}x{W}, (ms, plain_ms, bound_ms): " + json.dumps(wide))
+    t = totals[BN_ACT_BATCHES[0]]
+    return {"name": "bn_act", "route": "cuda", "source": BN_ACT_SRC, "replaces": None,
+            "launches": bn_act.launches - launches0, "max_ulps": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "batch1": totals[BN_ACT_BATCHES[1]], "resnet50_width": wide, "other_shapes": []}
 
 
 def deform_taps(dev, B, stride, seed=2):
@@ -1255,7 +1465,8 @@ def deform_serving_phase(dev, cfg_path=DEFORM):
     launches = {c.__name__: c.launches for c in counters}
     log(f"[deform-serve] {n16 + n1} requests, launches {json.dumps(launches)}")
     check(launches == {"sample_tiles_grouped": 2 * (n16 + n1), "scatter_tapdot_grouped": 0, "scatter_taps_grouped": 0,
-                       "taps_dot_grouped": 0, "warp_tiles": 0, "warp_views_sum": 0},
+                       "taps_dot_grouped": 0, "warp_tiles": 0, "warp_views_sum": 0,
+                       "bn_act": BN_ACT_A_REQUEST["deform"] * (n16 + n1)},
           f"deform serving launches {launches}")
 
     # the forward's parts (CUDA events)
@@ -1309,6 +1520,7 @@ def reset(counters) -> None:
 def serving_phase(dev, cfg_path=FLAGSHIP):
     from vsta_tpu_torch.config import load_config
     from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.ops.bn_act_cuda import bn_act
     from vsta_tpu_torch.ops.decode import decode_detections
     from vsta_tpu_torch.ops.warp_cuda import warp_out_dtype, warp_tiles
     from vsta_tpu_torch.serving import build_serving_fn
@@ -1330,22 +1542,24 @@ def serving_phase(dev, cfg_path=FLAGSHIP):
     launches = {}
     # bf16 main path: batch 16 takes the resident dispatch (compute-dtype out)
     check(warp_out_dtype(V, P, 16 * cfg.model.bev_proj_ch, torch.bfloat16) == torch.bfloat16, "dispatch")
-    warp_tiles.launches = 0
+    warp_tiles.launches = bn_act.launches = 0
     out16, n16 = run(serve, 16, 3, 5, "bf16")
     _, n1 = run(serve, 1, 2, 5, "bf16")
-    launches["resident"] = warp_tiles.launches
-    log(f"[serve] bf16: {n16 + n1} requests, warp_tiles launches {warp_tiles.launches}")
+    launches["resident"], launches["bn_act"] = warp_tiles.launches, bn_act.launches
+    log(f"[serve] bf16: {n16 + n1} requests, warp_tiles launches {warp_tiles.launches}, bn_act {bn_act.launches}")
     check(warp_tiles.launches == n16 + n1, "warp kernel launches != requests on the bf16 path")
+    check(bn_act.launches == BN_ACT_A_REQUEST["flagship"] * (n16 + n1), "bn_act launches != 15 a bf16 request")
 
     # f32 at batch 16: the windowed dispatch (f32 out)
     cfg32 = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, use_amp=False))
     check(warp_out_dtype(V, P, 16 * cfg.model.bev_proj_ch, torch.float32) == torch.float32, "dispatch")
     serve32 = build_serving_fn(cfg32, state, device="cuda")
-    warp_tiles.launches = 0
+    warp_tiles.launches = bn_act.launches = 0
     _, n32 = run(serve32, 16, 1, 2, "f32")
     launches["windowed"] = warp_tiles.launches
     log(f"[serve] f32: {n32} requests, warp_tiles launches {warp_tiles.launches}")
     check(warp_tiles.launches == n32, "warp kernel launches != requests on the f32 path")
+    check(bn_act.launches == 0, "an f32 request launched bn_act (f32 takes the plain BatchNorm)")
     del serve32
 
     # where a request's time goes: each layer alone (CUDA events), then
@@ -1371,7 +1585,7 @@ def serving_phase(dev, cfg_path=FLAGSHIP):
             log(f"[serve] layers B={B} (CUDA events, ms): " + json.dumps(layers))
     profile_request(serve, (frames, K16, Rt16))
 
-    heatmaps_kernels_vs_plain(serve, (frames, K16, Rt16), (warp_tiles,), "serve")
+    heatmaps_kernels_vs_plain(serve, (frames, K16, Rt16), (warp_tiles, bn_act), "serve")
     return launches
 
 
@@ -1399,6 +1613,7 @@ def heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(16, 1)):
     differ by no more than 2 bf16 ulps of |ref|, and an f32 model's by no
     more than 16 f32 ulps of |ref| (summation order alone; a bf16 rounding
     anywhere on the path would exceed it by orders of magnitude)."""
+    from vsta_tpu_torch.ops import bn_act_cuda
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
     from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
@@ -1409,10 +1624,12 @@ def heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(16, 1)):
         got = serve(*args)["heatmap"]
         before = [c.launches for c in counters]
         model.warp, model.views_sum, model.grouped = warp_tiles_ref, warp_views_sum_ref, gc.PLAIN
+        bn_act, bn_act_cuda.bn_act = bn_act_cuda.bn_act, bn_act_cuda.bn_act_ref  # BatchNorm looks it up a call
         try:
             ref = serve(*args)["heatmap"]
         finally:
             model.warp, model.views_sum, model.grouped = warp_tiles, warp_views_sum, gc.KERNELS
+            bn_act_cuda.bn_act = bn_act
         check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
         diff = (got - ref).abs()
         f32 = model.dtype == torch.float32
@@ -1459,6 +1676,7 @@ def perframe_serving_phase(dev, cfg_path, family):
     launches = {c.__name__: c.launches for c in counters}
     log(f"[{label}] {n16 + n1} requests, launches {json.dumps(launches)}")
     a_request = {"warp_views_sum": 1} if family == "concat" else {"sample_tiles_grouped": 2}
+    a_request["bn_act"] = BN_ACT_A_REQUEST["flagship"]  # both families run the flagship's trunk
     check(launches == {c.__name__: a_request.get(c.__name__, 0) * (n16 + n1) for c in counters},
           f"{label} launches {launches}")
 
@@ -1539,7 +1757,8 @@ def fusion_serving_phase(dev, cfg_path=FLAGSHIP):
         _, n1 = timed_requests(cfg, serve, inputs, 1, 1, 3, f"FUSION {fusion} bf16")
         launches = {c.__name__: c.launches for c in counters}
         log(f"[{label}] {n16 + n1} requests, launches {json.dumps(launches)}")
-        check(launches == {c.__name__: (n16 + n1 if c.__name__ == "sample_tiles_grouped" else 0) for c in counters},
+        a_request = {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST["flagship"]}
+        check(launches == {c.__name__: a_request.get(c.__name__, 0) * (n16 + n1) for c in counters},
               f"{label} launches {launches}")
         total = {a: total[a] + launches[a] for a in total}
         with torch.no_grad():
@@ -2606,7 +2825,8 @@ def resnet_serving_phase(dev):
         _, n1 = timed_requests(cfg, serve, inputs, 1, 2, 5, f"{name} {str(model.dtype).split('.')[-1]}")
         launches = {c.__name__: c.launches for c in counters}
         log(f"[resnet-serve] {name}: {n16 + n1} requests, launches {json.dumps(launches)}")
-        check(launches == {c.__name__: (n16 + n1 if c.__name__ == "sample_tiles_grouped" else 0) for c in counters},
+        a_request = {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST[name]}
+        check(launches == {c.__name__: a_request.get(c.__name__, 0) * (n16 + n1) for c in counters},
               f"{name} serving launches {launches}")
         total = {k: total[k] + launches[k] for k in total}
         heatmaps_kernels_vs_plain(serve, inputs, counters, f"resnet-serve {name}")
@@ -3038,10 +3258,11 @@ def export_phase(dev):
 
     def artifacts(name, label, cfg, state, inputs, quant):
         """Eager serving, then an artifact at each batch size: [(B, reading, heatmap)]."""
-        eager = eager_reference(cfg, state, inputs, EXPORT_LAUNCHES[name], quant)
+        per_request = {**EXPORT_LAUNCHES[name], "bn_act": 0 if "quant_encoder" in quant else BN_ACT_A_REQUEST[name]}
+        eager = eager_reference(cfg, state, inputs, per_request, quant)
         out = []
         for B in EXPORT_BATCHES:
-            launches, reading, hm = replayed_artifact(tmp, label, cfg, state, B, EXPORT_LAUNCHES[name], eager[B], quant)
+            launches, reading, hm = replayed_artifact(tmp, label, cfg, state, B, per_request, eager[B], quant)
             for k in total:
                 total[k] += launches[k]
             readings.append(reading)
@@ -3767,12 +3988,16 @@ def main() -> int:
     if "--bn-timing" in sys.argv:  # readings only
         bn_timing_phase(dev)
         return 0
+    if "--bn-act" in sys.argv:  # the one-pass BatchNorm kernel alone
+        bn_act_phase(dev)
+        return 0
 
     t = time.perf_counter()
     entries = kernel_phase(dev)
     entries += grouped_phase(dev)
     views_entry = perframe_kernel_phase(dev)
     ablation_entry = ablation_phase(dev)
+    bn_entry = bn_act_phase(dev)
     log(f"[kernel] phases {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     serve_launches = serving_phase(dev)
@@ -3855,14 +4080,17 @@ def main() -> int:
         **{e["replaces"]: on_paths[e["name"]] for e in entries if e["name"] in on_paths},
         ablation_entry["replaces"]: ablation_entry["launches"],
     }
+    bn_entry["launches"] = serve_launches["bn_act"] + on_paths["bn_act"]  # replaces no TPU kernel
     # warp_tiles and rows 4 and 3 at the shapes the ResNet paths and the mesh runs gave them
     for reading in serve_readings + train_readings + mesh_readings:
         for entry in entries:
             if entry["name"] in reading:
                 entry["other_shapes"].append(reading[entry["name"]])
-    check(len(entries) == 8 and len(counts) == 8, "the kernels line lists eight kernels")
+    check(len(entries) == 8 and len(counts) == 8, "the kernels line lists eight TPU kernels")
     for entry in entries:
         entry["launches"] = counts[entry["replaces"]]
+    entries.append(bn_entry)
+    for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     log("[launches] on the model paths (warp_tiles_variant: the attribution run): "
         + json.dumps({e["name"]: e["launches"] for e in entries}))

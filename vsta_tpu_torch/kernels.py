@@ -96,12 +96,13 @@ def wrappers(ablation: bool = True) -> tuple:
     """Every kernel wrapper; each counts its launches in ``.launches``.
     Without ``ablation``, those on the model paths only: all but
     ``warp_tiles_variant``."""
-    from .ops import grouped_cuda, warp_cuda, warp_views_cuda
+    from .ops import bn_act_cuda, grouped_cuda, warp_cuda, warp_views_cuda
 
     on_paths = (
         warp_cuda.warp_tiles, warp_views_cuda.warp_views_sum,
         grouped_cuda.sample_tiles_grouped, grouped_cuda.scatter_tapdot_grouped,
         grouped_cuda.scatter_taps_grouped, grouped_cuda.taps_dot_grouped,
+        bn_act_cuda.bn_act,
     )
     return on_paths + ((warp_cuda.warp_tiles_variant,) if ablation else ())
 

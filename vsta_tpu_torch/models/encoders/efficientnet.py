@@ -9,7 +9,8 @@ is applied with :func:`same_pad`, not ``Conv2d(padding=k // 2)``.
 Parameters are float32; every op runs in the module's compute dtype
 (weights cast at use, as Flax's ``dtype=`` does). BatchNorm has Flax's
 semantics, eps 1e-3: the running statistics in eval mode, the batch's in
-training mode.
+training mode; the SiLU after it is the norm's ``act`` (one kernel with it
+in eval on the card, ``ops/bn_act_cuda.py``).
 """
 
 from __future__ import annotations
@@ -84,8 +85,8 @@ class MBConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x
         if self.expand_conv is not None:
-            y = F.silu(self.expand_bn(conv(y, self.expand_conv)))
-        y = F.silu(self.dw_bn(conv(y, self.dw_conv, self.stride)))
+            y = self.expand_bn(conv(y, self.expand_conv), act="silu")
+        y = self.dw_bn(conv(y, self.dw_conv, self.stride), act="silu")
         y = self.project_bn(conv(self.se(y), self.project_conv))
         return y + x if self.residual else y
 
@@ -116,7 +117,7 @@ class EfficientNetFeatures(nn.Module):
 
     def forward(self, x: torch.Tensor, levels: int = 5) -> List[torch.Tensor]:
         """x [N, 3, H, W] -> the first ``levels`` pyramid maps (NCHW)."""
-        y = F.silu(self.stem_bn(conv(x.to(self.dtype), self.stem_conv, 2)))
+        y = self.stem_bn(conv(x.to(self.dtype), self.stem_conv, 2), act="silu")
         feats: List[torch.Tensor] = []
         stats_only = False
         for (_, _, _, strides, _), blocks in zip(B0_STAGES, self.stages):

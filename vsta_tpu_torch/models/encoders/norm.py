@@ -8,10 +8,13 @@ norms do under ``dtype=bfloat16``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import bn_act_cuda
 from ...parallel.collectives import all_reduce_sum
 
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
@@ -47,12 +50,27 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, ch: int, eps: float):
         super().__init__(ch, eps=eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def fused(self, x: torch.Tensor) -> bool:
+        """Whether eval mode takes the one-pass kernel for x: the kernel
+        takes x (:func:`~vsta_tpu_torch.ops.bn_act_cuda.takes`: bfloat16,
+        a dense layout) and no gradient is wanted (grad mode off, or
+        neither x nor the affine parameters require one)."""
+        args = (x, self.running_mean, self.running_var, self.weight, self.bias)
+        wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, self.weight, self.bias))
+        return not wants_grad and bn_act_cuda.takes(*args)
+
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        """x [N, C, H, W] -> normalised, then ``act`` (None or ``"silu"``),
+        in x's dtype. In eval mode a CUDA tensor that :meth:`fused` admits
+        takes one kernel (``ops/bn_act_cuda.py``) for both; anything else
+        takes its plain version, the f32 BatchNorm, the cast, the SiLU."""
+        if act not in bn_act_cuda.ACTS:
+            raise ValueError(f"BatchNorm: act must be one of {bn_act_cuda.ACTS}, got {act!r}")
         if not self.training:
-            return F.batch_norm(
-                x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-                False, 0.0, self.eps,
-            ).to(x.dtype)
+            args = (x, self.running_mean, self.running_var, self.weight, self.bias, self.eps, act)
+            if x.is_cuda and self.fused(x):
+                return bn_act_cuda.bn_act(*args)
+            return bn_act_cuda.bn_act_ref(*args)
         xf = x.float()
         dims, f64 = (0, 2, 3), torch.float64
         sums = torch.stack([xf.sum(dim=dims, dtype=f64), (xf * xf).sum(dim=dims, dtype=f64)])
@@ -66,8 +84,8 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        y = ((xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+        return F.silu(y) if act == "silu" else y
 
 
 class GroupNorm(nn.GroupNorm):
