@@ -78,39 +78,46 @@ def sample_grouped(coords: torch.Tensor, hw, K: int, scale: torch.Tensor = None,
     return Bound(nbytes, 2.0 * int(live.sum()) * K)
 
 
-def static_coords(cfg, K, Rt) -> Tuple[torch.Tensor, Tuple[int, int]]:
+def static_coords(reference, cfg, K, Rt) -> Tuple[torch.Tensor, Tuple[int, int]]:
     """Feature-pixel coordinates [V, Hb * Wb, 2] of the BEV cells under one
-    calibration (K [V, 3, 3], Rt [V, 4, 4]) and the feature map's size."""
-    from ..reference.model import Reference, project_cells
-
-    ref = Reference(cfg, {})
+    calibration (K [V, 3, 3], Rt [V, 4, 4]) and the feature map's size, by
+    the configuration's ``reference`` module."""
+    ref = reference.Reference(cfg, {})
     hw = ref.feature_hw()
     Hb, Wb = ref.bev_hw
-    coords, _ = project_cells(torch.as_tensor(K), torch.as_tensor(Rt), ref.img_hw, hw, Hb, Wb, ref.bounds)
+    coords, _ = reference.project_cells(torch.as_tensor(K), torch.as_tensor(Rt), ref.img_hw, hw, Hb, Wb,
+                                        ref.bounds)
     return coords.reshape(coords.shape[0], Hb * Wb, 2), hw
 
 
-def concat_request(cfg, K, Rt, batch: int) -> Bound:
+def concat_request(reference, cfg, K, Rt, batch: int) -> Bound:
     """The warp's one launch a request of the concat fusion: every frame's
     BEV_PROJ_CH projected channels side by side (K = batch * channels)."""
-    coords, hw = static_coords(cfg, K, Rt)
+    coords, hw = static_coords(reference, cfg, K, Rt)
     return warp_tiles(coords, hw, batch * cfg["MODEL"]["BEV_PROJ_CH"])
 
 
+def concat_grouped_request(reference, cfg, K, Rt, batch: int) -> Bound:
+    """The grouped sampler's one launch a request of the concat fusion under
+    ``WARP_IMPL: fused``: the views' projected maps with every frame's
+    BEV_PROJ_CH channels side by side (one group a view, K = batch *
+    channels) at the static cameras' taps."""
+    coords, hw = static_coords(reference, cfg, K, Rt)
+    return sample_grouped(coords, hw, batch * cfg["MODEL"]["BEV_PROJ_CH"])
+
+
 @torch.no_grad()
-def deform_request(cfg, weights, batch, device) -> Bound:
+def deform_request(reference, cfg, weights, batch, device) -> Bound:
     """The grouped sampler's two launches a request of the deformable
     fusion, at the taps of ``batch`` (the stacked inputs of one request):
     the query warp (the views' FEAT_DIM channels of every frame side by
     side) and the deformable sampler (one group a frame, view and head,
     its taps weighted by the attention; a masked view's weigh nothing)."""
-    from ..reference.model import Reference, tf32_off
-
-    tf32_off()
+    reference.tf32_off()
     B = len(batch["images"])
-    coords, hw = static_coords(cfg, batch["K"][0], batch["Rt"][0])
+    coords, hw = static_coords(reference, cfg, batch["K"][0], batch["Rt"][0])
     query = sample_grouped(coords, hw, B * cfg["MODEL"]["FEAT_DIM"])
-    ref = Reference(cfg, weights)
+    ref = reference.Reference(cfg, weights)
     args = [torch.as_tensor(batch[k], device=device) for k in ("images", "K", "Rt")]
     feats = ref.encode(args[0])
     _, coords_s, depth_s, q_in = ref.deform_inputs(feats, args[1], args[2])

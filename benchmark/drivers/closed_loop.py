@@ -81,9 +81,9 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
     B = int(tr["batch"])
     rec = Recorder(active=trace, cuda=dev.type == "cuda")
     marks = [("imports", time.perf_counter())]
-    weights = make_weights(cfg, seed, dev)
+    weights = make_weights(cell.reference, cfg, seed, dev)
     ds = FrameSets(cfg, int(tr["frame_sets"]), seed, dev)
-    calibrate(cfg, weights, ds[0], dev)
+    calibrate(cell.reference, cfg, weights, ds[0], dev)
     prefetcher = tr["feed"] == "prefetcher"
     if not prefetcher and tr["feed"] != "pinned":
         raise ValueError(f"no feed {tr['feed']!r}: 'pinned' or 'prefetcher'")
@@ -155,11 +155,12 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
     tmp.cleanup()
     common.free_program(dev)
 
-    numbers = common.judge_serving(cfg, weights, ds, sample, dev, control)
+    numbers = common.judge_serving(cell.reference, cfg, weights, ds, sample, dev, control)
     rec.counters.update({"profiled_items": prof_done * B})
-    records = Records(cfg=cfg, traffic=tr, requests=done, counters=rec.counters, trace=rec.trace)
+    records = Records(cfg=cfg, traffic=tr, reference=cell.reference,
+                      requests=done, counters=rec.counters, trace=rec.trace)
     if trace:
-        records.counts["model_flops_per_item"] = model_flops(cfg, ds.K, ds.Rt)
+        records.counts["model_flops_per_item"] = model_flops(cell.reference, cfg, ds.K, ds.Rt)
         records.extra.update({"weights": weights, "batch": ds.batch(sample.items[0][0]) if sample.items else None,
                               "device": dev, "B": B})
     e2e = {"frames_per_s": done * B / seconds, "setup_s": setup_s}

@@ -62,9 +62,9 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
     dev = torch.device(device)
     rec = Recorder(active=trace, cuda=dev.type == "cuda")
     marks = [("imports", time.perf_counter())]
-    weights = make_weights(cfg, seed, dev)
+    weights = make_weights(cell.reference, cfg, seed, dev)
     ds = FrameSets(cfg, int(tr["frame_sets"]), seed, dev)
-    calibrate(cfg, weights, ds[0], dev)
+    calibrate(cell.reference, cfg, weights, ds[0], dev)
     staged_sets = staged(ds, 1, dev)
     marks.append(("inputs", time.perf_counter()))
     tmp = common.workdir()
@@ -137,13 +137,14 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
     tmp.cleanup()
     common.free_program(dev)
 
-    numbers = common.judge_serving(cfg, weights, ds, sample, dev, control)
+    numbers = common.judge_serving(cell.reference, cfg, weights, ds, sample, dev, control)
     numbers["requests_open_at_close"] = int(open_left.sum())
     rec.counters.update({"profiled_requests": prof_done, "profiled_items": prof_done})
-    records = Records(cfg=cfg, traffic=tr, requests=served, counters=rec.counters, trace=rec.trace,
+    records = Records(cfg=cfg, traffic=tr, reference=cell.reference,
+                      requests=served, counters=rec.counters, trace=rec.trace,
                       extra={"service_s": service, "latency_s": lat})
     if trace:
-        records.counts["model_flops_per_item"] = model_flops(cfg, ds.K, ds.Rt)
+        records.counts["model_flops_per_item"] = model_flops(cell.reference, cfg, ds.K, ds.Rt)
     e2e = {"latency_p50_ms": 1e3 * percentile(lat, 50), "latency_p95_ms": 1e3 * percentile(lat, 95),
            "setup_s": setup_s}
     return common.Outcome(attempted=len(due), failed=0, end_to_end=e2e, records=records, memory_peak_bytes=peak,

@@ -48,9 +48,9 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
     B = int(tr["batch"])
     rec = Recorder(active=trace, cuda=dev.type == "cuda")
     marks = [("imports", time.perf_counter())]
-    weights = make_weights(cfg, seed, dev)
+    weights = make_weights(cell.reference, cfg, seed, dev)
     ds = FrameSets(cfg, int(tr["frame_sets"]), seed, dev)
-    calibrate(cfg, weights, ds[0], dev)
+    calibrate(cell.reference, cfg, weights, ds[0], dev)
     marks.append(("inputs", time.perf_counter()))
     pcfg = common.program_config(cfg)
     state = create_state(pcfg, state_dict=weights, device=dev, steps_per_epoch=int(tr["steps_per_epoch"]))
@@ -112,18 +112,18 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
     common.free_program(dev)
 
     t = time.perf_counter()
-    kinds = kinds_of(cfg)
+    kinds = kinds_of(cell.reference, cfg)
     batches = []
     for idx in ref_idx:
         b = ds.batch(idx)
         batches.append({k: torch.as_tensor(v, device=dev) for k, v in b.items()})
-    ref = steps(cfg, weights, kinds, batches, int(tr["steps_per_epoch"]))
+    ref = steps(cell.reference, cfg, weights, kinds, batches, int(tr["steps_per_epoch"]))
     prog = {"losses": losses, "grad": grad1, "update": update}
     numbers = training_numbers(prog, {k: ({n: x.cpu() for n, x in v.items()} if isinstance(v, dict) else v)
                                       for k, v in ref.items()})
     numbers["loss_first"] = losses[0]
     if control:
-        ctl = steps(cfg, weights, kinds, batches, int(tr["steps_per_epoch"]), PRECISIONS[control])
+        ctl = steps(cell.reference, cfg, weights, kinds, batches, int(tr["steps_per_epoch"]), PRECISIONS[control])
         cnum = training_numbers({k: ({n: x.cpu() for n, x in v.items()} if isinstance(v, dict) else v)
                                  for k, v in ctl.items()},
                                 {k: ({n: x.cpu() for n, x in v.items()} if isinstance(v, dict) else v)
@@ -132,9 +132,10 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
     numbers["reference_s"] = time.perf_counter() - t
 
     rec.counters.update({"input_wait_s": wait_s, "batches": calls, "profiled_items": prof_calls * B})
-    records = Records(cfg=cfg, traffic=tr, requests=calls, counters=rec.counters, trace=rec.trace)
+    records = Records(cfg=cfg, traffic=tr, reference=cell.reference,
+                      requests=calls, counters=rec.counters, trace=rec.trace)
     if trace:
-        records.counts["model_flops_per_item"] = model_flops(cfg, ds.K, ds.Rt, train=True)
+        records.counts["model_flops_per_item"] = model_flops(cell.reference, cfg, ds.K, ds.Rt, train=True)
     e2e = {"train_frames_per_s": calls * B / window_s, "setup_s": setup_s}
     return common.Outcome(attempted=calls, failed=0, end_to_end=e2e, records=records, memory_peak_bytes=peak,
                           numbers=numbers)

@@ -3,8 +3,10 @@ configuration file, its traffic file, its limits file and its metrics'
 readers. Nothing here names a cell, a configuration or a metric: a new one
 is new files and a new entry.
 
-* ``configs/<config>.json``: {"source", "reduced", "assumed", "config"},
-  the config as it is run, in the shipped YAML's schema;
+* ``configs/<config>.json``: {"source", "reduced", "assumed", "reference",
+  "config"}: the config as it is run, in the shipped YAML's schema, and the
+  name of its plain reference, a module ``reference/<name>.py`` that
+  exports ``reference.CONTRACT`` (there is no default);
 * ``traffic/<traffic>.json``: {"driver": one of ``drivers/``, and that
   driver's parameters};
 * ``limits/<cell>.json``: {"<number>": limit} for every number the
@@ -15,12 +17,15 @@ is new files and a new entry.
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from types import ModuleType
 from typing import Any, Dict, List, Optional
+
+from ..reference import CONTRACT
 
 HERE = Path(__file__).resolve().parent.parent  # benchmark/
 
@@ -36,6 +41,7 @@ class Cell:
     limits: Dict[str, float]
     end_to_end: List[Dict[str, Any]]
     per_layer: List[Dict[str, Any]]
+    reference: ModuleType
     root: Path = HERE
 
     @property
@@ -47,6 +53,25 @@ def load_module(path: Path, name: str) -> ModuleType:
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def reference(config: str, config_file: Dict[str, Any], root: Path = HERE) -> ModuleType:
+    """The plain reference module that ``config``'s file names, from the
+    tree ``root``. It is imported as ``benchmark.reference.<name>``, so that
+    a reference of a tree of its own builds on the package's by relative
+    import. Raises KeyError, with the configuration's name, when the file
+    names none, or a module that is not there or lacks part of the contract."""
+    name = config_file.get("reference")
+    path = root / "reference" / f"{name}.py"
+    if not isinstance(name, str) or not name.isidentifier() or not path.is_file():
+        raise KeyError(f"configuration {config!r}: its file names no reference module under "
+                       f"{root / 'reference'} (\"reference\": {name!r})")
+    qualified = f"benchmark.reference.{name}"
+    mod = importlib.import_module(qualified) if root == HERE else load_module(path, qualified)
+    missing = [k for k in CONTRACT if not hasattr(mod, k)]
+    if missing:
+        raise KeyError(f"configuration {config!r}: reference {name!r} lacks {missing}")
     return mod
 
 
@@ -67,7 +92,8 @@ def find(bench: Dict[str, Any], name: str, root: Path = HERE) -> Cell:
     limits = json.loads((root / "limits" / f"{name}.json").read_text())
     e2e = [m for m in bench["end_to_end"] if _applies(m, name)]
     per = [m for m in bench["per_layer"] if _applies(m, name)]
-    return Cell(name, w["config"], w["traffic"], int(w["chips"]), cfile, traffic, limits, e2e, per, root)
+    ref = reference(w["config"], cfile, root)
+    return Cell(name, w["config"], w["traffic"], int(w["chips"]), cfile, traffic, limits, e2e, per, ref, root)
 
 
 def driver(cell: Cell) -> ModuleType:
@@ -89,6 +115,7 @@ class Records:
     trace: Any = None
     counts: Dict[str, Any] = field(default_factory=dict)
     extra: Dict[str, Any] = field(default_factory=dict)
+    reference: Optional[ModuleType] = None  # the configuration's reference module
 
 
 def read_metrics(cell: Cell, rec: Records) -> Dict[str, Optional[float]]:

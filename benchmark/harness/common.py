@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from ..reference.decode import decode
-from ..reference.model import Reference, tf32_off
 from ..reference.precision import PRECISIONS
 from .cell import Records
 from .inputs import order
@@ -152,12 +151,13 @@ def free_program(device) -> None:
         torch.cuda.empty_cache()
 
 
-def reference_maps(cfg: Dict, weights, batch: Dict[str, np.ndarray], device, precision: str = "exact",
+def reference_maps(reference, cfg: Dict, weights, batch: Dict[str, np.ndarray], device, precision: str = "exact",
                    block: int = 4) -> Dict[str, torch.Tensor]:
-    """The reference's heatmap, offset and size maps for a stacked batch,
-    ``block`` frame sets at a time, on the CPU."""
-    tf32_off()
-    ref = Reference(cfg, weights, PRECISIONS[precision])
+    """The heatmap, offset and size maps of the configuration's
+    ``reference`` module for a stacked batch, ``block`` frame sets at a
+    time, on the CPU."""
+    reference.tf32_off()
+    ref = reference.Reference(cfg, weights, PRECISIONS[precision])
     outs: Dict[str, List[torch.Tensor]] = {"heatmap": [], "offset": [], "size": []}
     n = len(batch["images"])
     with torch.no_grad():
@@ -177,7 +177,8 @@ def as_served(cfg: Dict, maps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
     return {"boxes": det["boxes"], "scores": det["scores"], "valid": det["valid"], "heatmap": maps["heatmap"]}
 
 
-def judge_serving(cfg: Dict, weights, ds, sample: Sample, device, control: Optional[str] = None) -> Dict[str, float]:
+def judge_serving(reference, cfg: Dict, weights, ds, sample: Sample, device,
+                  control: Optional[str] = None) -> Dict[str, float]:
     """The comparison numbers of the sampled requests; each item of the
     sample is (dataset indices, program outputs on the CPU). With
     ``control`` the reference in that precision stands in the program's
@@ -186,10 +187,10 @@ def judge_serving(cfg: Dict, weights, ds, sample: Sample, device, control: Optio
     prog, refs, ctrl = [], [], []
     for idx, out in sample.items:
         batch = ds.batch(list(idx))
-        refs.append(reference_maps(cfg, weights, batch, device))
+        refs.append(reference_maps(reference, cfg, weights, batch, device))
         prog.append(out)
         if control:
-            ctrl.append(as_served(cfg, reference_maps(cfg, weights, batch, device, control)))
+            ctrl.append(as_served(cfg, reference_maps(reference, cfg, weights, batch, device, control)))
     numbers = serving_numbers(prog, refs, cfg)
     if control:
         numbers.update({f"control.{k}": v for k, v in serving_numbers(ctrl, refs, cfg).items()})

@@ -22,8 +22,6 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
-from ..reference.model import param_specs
-
 # The heatmap's output convolution: weights of zero mean over each input
 # channel's taps (a channel's mean level adds nothing) and a scale that
 # spreads the logits; its bias is then set from the reference's logits on
@@ -41,9 +39,10 @@ def model_dict(cfg: Dict) -> Dict:
     return m
 
 
-def make_weights(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Random weights under the detector's parameter names, on ``device``."""
-    specs = param_specs(model_dict(cfg))
+def make_weights(reference, cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """Random weights under the detector's parameter names, as the
+    configuration's ``reference`` module lists them, on ``device``."""
+    specs = reference.param_specs(model_dict(cfg))
     total = sum(math.prod(s) for _, s, _ in specs)
     g = torch.Generator(device=device).manual_seed(seed)
     flat = torch.randn(total, generator=g, device=device)
@@ -84,25 +83,23 @@ def make_weights(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def calibrate(cfg: Dict, weights: Dict[str, torch.Tensor], frame_set: Dict[str, np.ndarray], device) -> None:
+def calibrate(reference, cfg: Dict, weights: Dict[str, torch.Tensor], frame_set: Dict[str, np.ndarray],
+              device) -> None:
     """Make the random weights behave as trained ones do, in place, from
-    the reference on the seed's first frame set: every BatchNorm's running
-    statistics become that frame set's (so each normalises, and the
-    features carry the frames' content), then the heatmap's bias is shifted
-    so that ``CELLS_ABOVE`` of the cells lie above the confidence
-    threshold."""
-    from ..reference.model import Reference, Trunk, normalise
-
+    the configuration's ``reference`` module on the seed's first frame set:
+    every BatchNorm's running statistics become that frame set's (so each
+    normalises, and the features carry the frames' content), then the
+    heatmap's bias is shifted so that ``CELLS_ABOVE`` of the cells lie above
+    the confidence threshold."""
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         args = [torch.as_tensor(frame_set[k][None], device=device) for k in ("images", "K", "Rt")]
-        stats: Dict = {}
-        Trunk(weights, cfg["MODEL"]["OUT_INDEX"], train=True, stats=stats)(normalise(args[0][0]))
-        for p, (mean, var) in stats.items():
+        ref = reference.Reference(cfg, weights)
+        for p, (mean, var) in ref.batch_stats(args[0][0]).items():
             weights[p + "running_mean"].copy_(mean)
             weights[p + "running_var"].copy_(var)
-        logits = Reference(cfg, weights)(*args)["heatmap_logits"].flatten().float()
+        logits = ref(*args)["heatmap_logits"].flatten().float()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     conf = cfg["EVAL"]["CONF_THRESH"]

@@ -17,6 +17,19 @@ weights once the window has closed.
   decode dropped with no detection near enough to have suppressed it (0
   when every peak is explained; the reference's maps judge the heatmap
   and the detections, this judges what is left out).
+* ``recall_gap``: over every detection the reference's own maps decode to
+  (the plain decode, ``reference/decode.py``) with no detection of the
+  program's near it (``NMS_DIST_M`` plus a cell's diagonal between the
+  centres), how far the program's heatmap at its cell lies below the
+  reference's score, in logits (the heatmap is the sigmoid of the head's
+  logit, whose scale does not saturate near 0 and 1); 0 when the program
+  has a detection near each one, infinite where its heatmap reads 0 there.
+  ``det_gap`` judges the people the program reported, this the people of
+  the reference's that it left out: a heatmap that comes out all low
+  reports nobody and reads high here.
+
+A heatmap or a box that is not a number makes ``heatmap_gap``, ``det_gap`` and
+``recall_gap`` infinite.
 
 Training: the program's first steps against the reference's same steps.
 
@@ -38,8 +51,15 @@ from typing import Dict, List, Mapping, Tuple
 
 import torch
 
+from ..reference.decode import decode
+
 
 SMALL_LEAF = 1e-3
+
+
+def _worse(a: float, b: float) -> float:
+    """The larger of two gaps, infinite where either is not a number."""
+    return math.inf if math.isnan(a) or math.isnan(b) else max(a, b)
 
 
 def _cells(boxes: torch.Tensor, bounds, hw) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,20 +110,42 @@ def _unexplained_peak(heat: torch.Tensor, kept: torch.Tensor, bounds, conf: floa
     return float((vals - conf).max()) if vals.numel() else 0.0
 
 
+def _left_out(heat: torch.Tensor, ref_det: Dict[str, torch.Tensor], kept: torch.Tensor, W: int, reach: float) -> float:
+    """How far, in logits, the program's heatmap ``heat`` lies below the
+    reference's score at the worst of the reference's detections ``ref_det``
+    (one frame's decode) that no kept detection of the program's lies
+    within ``reach`` metres of; 0 when there is none."""
+    sel = ref_det["valid"].nonzero().flatten()
+    if not len(sel):
+        return 0.0
+    centres, scores, at = ref_det["boxes"][sel, :2], ref_det["scores"][sel], ref_det["cells"][sel]
+    if len(kept):
+        far = ~(torch.cdist(centres.double(), kept.double()).min(dim=1).values < reach)
+        scores, at = scores[far], at[far]
+    if not len(scores):
+        return 0.0
+    s, h = scores.double(), heat[at // W, at % W].double()
+    if bool(h.isnan().any()):
+        return math.inf
+    short = torch.where(h >= s, torch.zeros_like(s), torch.logit(s) - torch.logit(h))
+    return max(float(short.max()), 0.0)
+
+
 def serving_numbers(prog: List[Dict[str, torch.Tensor]], ref: List[Dict[str, torch.Tensor]], cfg: Dict) -> Dict[str, float]:
     """``prog``: per request the program's 'boxes', 'scores', 'valid',
     'heatmap'; ``ref``: per request the reference's 'heatmap', 'offset',
-    'size' maps. Returns the three numbers and, for the record, the mean
+    'size' maps. Returns the numbers and, for the record, the mean
     detections a frame; with no request to judge every number is NaN, so
     that a run that answered nothing is not correct."""
     if not prog:
-        return dict.fromkeys(("heatmap_gap", "heatmap_rms", "det_gap", "missed_gap", "dets_per_frame"), math.nan)
+        return dict.fromkeys(("heatmap_gap", "heatmap_rms", "det_gap", "missed_gap", "recall_gap", "dets_per_frame"),
+                             math.nan)
     m, e = cfg["MODEL"], cfg["EVAL"]
     bounds = tuple(m["BEV_BOUNDS"])
     H, W = m["BEV_SIZE"][-2:]
     rx, ry = (bounds[1] - bounds[0]) / W, (bounds[3] - bounds[2]) / H
     conf, nms = e["CONF_THRESH"], e["NMS_DIST_M"]
-    hm_gap = det_gap = missed_gap = 0.0
+    hm_gap = det_gap = missed_gap = recall_gap = 0.0
     n_det = n_frames = 0
     sq, cells = 0.0, 0
     for p, r in zip(prog, ref):
@@ -111,10 +153,11 @@ def serving_numbers(prog: List[Dict[str, torch.Tensor]], ref: List[Dict[str, tor
         hr, off, size = (r[k].float().cpu() for k in ("heatmap", "offset", "size"))
         hr = hr[..., 0]
         d = (hp - hr).double()
-        hm_gap = max(hm_gap, float(d.abs().max()))
+        hm_gap = _worse(hm_gap, float(d.abs().max()))
         sq, cells = sq + float((d * d).sum()), cells + d.numel()
         boxes, scores, valid = p["boxes"].float().cpu(), p["scores"].float().cpu(), p["valid"].cpu().bool()
         ix, iy = _cells(boxes, bounds, (H, W))
+        ref_det = decode(hr, off, size, bounds=bounds, conf=conf, nms_dist_m=nms, max_dets=e["MAX_DETS"])
         for b in range(hp.shape[0]):
             n_frames += 1
             sel = valid[b].nonzero().flatten()
@@ -133,11 +176,13 @@ def serving_numbers(prog: List[Dict[str, torch.Tensor]], ref: List[Dict[str, tor
                 gaps = torch.stack([(scores[b, sel] - s_ref).abs(), (bx[:, 0] - cx_ref).abs() / rx,
                                     (bx[:, 1] - cy_ref).abs() / ry, (bx[:, 2] / w_ref - 1).abs(),
                                     (bx[:, 3] / h_ref - 1).abs()])
-                det_gap = max(det_gap, float(gaps.max()))
+                det_gap = _worse(det_gap, float(gaps.max()))
             missed_gap = max(missed_gap, _unexplained_peak(hp[b], boxes[b, sel, :2], bounds, conf, nms,
                                                            e["MAX_DETS"]))
+            recall_gap = _worse(recall_gap, _left_out(hp[b], {k: v[b] for k, v in ref_det.items()}, boxes[b, sel, :2],
+                                                      W, nms + math.hypot(rx, ry)))
     return {"heatmap_gap": hm_gap, "heatmap_rms": math.sqrt(sq / max(cells, 1)), "det_gap": det_gap,
-            "missed_gap": missed_gap,
+            "missed_gap": missed_gap, "recall_gap": recall_gap,
             "dets_per_frame": n_det / max(n_frames, 1)}
 
 

@@ -18,5 +18,5 @@ def read(rec):
     secs, n = tr.kernel_s(KERNEL)
     if n == 0 or secs <= 0 or n % LAUNCHES_A_REQUEST:
         return None
-    bound = deform_request(rec.cfg, rec.extra["weights"], batch, rec.extra["device"])
+    bound = deform_request(rec.reference, rec.cfg, rec.extra["weights"], batch, rec.extra["device"])
     return 100.0 * (n // LAUNCHES_A_REQUEST) * bound.seconds / secs

@@ -16,5 +16,5 @@ def read(rec):
     secs, n = tr.kernel_s(KERNEL)
     if n == 0 or secs <= 0:
         return None
-    bound = concat_request(rec.cfg, batch["K"][0], batch["Rt"][0], rec.extra["B"])
+    bound = concat_request(rec.reference, rec.cfg, batch["K"][0], batch["Rt"][0], rec.extra["B"])
     return 100.0 * n * bound.seconds / secs

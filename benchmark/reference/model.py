@@ -54,33 +54,41 @@ def _b0_blocks():
     return out
 
 
-def param_specs(m: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
-    """(name, shape, kind) of every weight of the model ``m`` (the config's
-    MODEL section with VIEWS added). Kinds: conv, dense (fan-in scaled),
-    bias, norm_w, norm_b, bn_mean, bn_var, count."""
-    specs = []
+def bn_specs(p: str, ch: int) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """The five entries of a BatchNorm of ``ch`` channels under prefix ``p``."""
+    return [(p + "weight", (ch,), "norm_w"), (p + "bias", (ch,), "norm_b"), (p + "running_mean", (ch,), "bn_mean"),
+            (p + "running_var", (ch,), "bn_var"), (p + "num_batches_tracked", (), "count")]
 
-    def bn(p, ch):
-        specs.extend([(p + "weight", (ch,), "norm_w"), (p + "bias", (ch,), "norm_b"),
-                      (p + "running_mean", (ch,), "bn_mean"), (p + "running_var", (ch,), "bn_var"),
-                      (p + "num_batches_tracked", (), "count")])
 
-    specs.append(("encoder.backbone.stem_conv.weight", (32, 3, 3, 3), "conv"))
-    bn("encoder.backbone.stem_bn.", 32)
+def b0_specs(m: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """The EfficientNet-B0 trunk's weights, then the encoder's projection."""
+    specs = [("encoder.backbone.stem_conv.weight", (32, 3, 3, 3), "conv")]
+    specs += bn_specs("encoder.backbone.stem_bn.", 32)
     for p, cin, cout, expand, k, _ in _b0_blocks():
         mid = cin * expand
         if expand != 1:
             specs.append((p + "expand_conv.weight", (mid, cin, 1, 1), "conv"))
-            bn(p + "expand_bn.", mid)
+            specs += bn_specs(p + "expand_bn.", mid)
         specs.append((p + "dw_conv.weight", (mid, 1, k, k), "conv"))
-        bn(p + "dw_bn.", mid)
+        specs += bn_specs(p + "dw_bn.", mid)
         red = max(1, int(cin * 0.25))
         specs += [(p + "se.reduce.weight", (red, mid, 1, 1), "conv"), (p + "se.reduce.bias", (red,), "bias"),
                   (p + "se.expand.weight", (mid, red, 1, 1), "conv"), (p + "se.expand.bias", (mid,), "bias")]
         specs.append((p + "project_conv.weight", (cout, mid, 1, 1), "conv"))
-        bn(p + "project_bn.", cout)
+        specs += bn_specs(p + "project_bn.", cout)
+    return specs + proj_specs(m, B0_LEVEL_CH[m["OUT_INDEX"]])
+
+
+def proj_specs(m: Dict, level_ch: int) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """The encoder's 1x1 projection from the trunk's ``level_ch`` channels."""
+    F_ = m["FEAT_DIM"]
+    return [("encoder.proj.weight", (F_, level_ch, 1, 1), "conv"), ("encoder.proj.bias", (F_,), "bias")]
+
+
+def bev_specs(m: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """The weights after the encoder: the fusion's and the head's."""
+    specs = []
     F_, C = m["FEAT_DIM"], m["BEV_PROJ_CH"]
-    specs += [("encoder.proj.weight", (F_, B0_LEVEL_CH[m["OUT_INDEX"]], 1, 1), "conv"), ("encoder.proj.bias", (F_,), "bias")]
     V = m["VIEWS"]
     if m["FUSION"] == "concat":
         specs += [("view_proj", (V, F_, C), "dense_views"), ("view_proj_bias", (C,), "bias")]
@@ -104,6 +112,13 @@ def param_specs(m: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
     return specs
 
 
+def param_specs(m: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """(name, shape, kind) of every weight of the model ``m`` (the config's
+    MODEL section with VIEWS added). Kinds: conv, dense (fan-in scaled),
+    bias, norm_w, norm_b, bn_mean, bn_var, count."""
+    return b0_specs(m) + bev_specs(m)
+
+
 # -- the trunk ------------------------------------------------------------
 
 def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -118,6 +133,8 @@ def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
 class Trunk:
     """EfficientNet-B0 up to pyramid level ``level`` (0-based), then the
     encoder's 1x1 projection. ``train``: BatchNorm from the batch."""
+
+    eps = B0_BN_EPS
 
     def __init__(self, w: Dict[str, torch.Tensor], level: int, q: Q = exact, train: bool = False, stats=None):
         self.w, self.level, self.q, self.train = w, level, q, train
@@ -138,7 +155,7 @@ class Trunk:
                 self.stats[p] = (mean.detach(), var.detach())
         else:
             mean, var = w[p + "running_mean"], w[p + "running_var"]
-        mul = w[p + "weight"] / torch.sqrt(var + B0_BN_EPS)
+        mul = w[p + "weight"] / torch.sqrt(var + self.eps)
         return (x - mean[:, None, None]) * mul[:, None, None] + w[p + "bias"][:, None, None]
 
     def block(self, x, p, cin, cout, expand, k, stride):
@@ -253,11 +270,25 @@ class Reference:
             h, w = -(-h // 2), -(-w // 2)
         return h, w
 
+    def trunk(self, train: bool = False, stats=None) -> Trunk:
+        """The trunk and the encoder's projection on this model's weights;
+        ``stats``: a dict where train mode records each BatchNorm's batch
+        statistics by the norm's parameter prefix."""
+        return Trunk(self.w, self.level, self.q, train, stats)
+
+    def batch_stats(self, images: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """Every BatchNorm's batch mean and biased variance over the uint8
+        frames [N, H, W, 3], each norm fed by the ones before it in train
+        mode: the running statistics that make eval mode normalise them."""
+        stats: Dict = {}
+        self.trunk(True, stats)(normalise(images))
+        return stats
+
     def encode(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
         """images [B, V, H, W, 3] uint8 -> [B, V, h, w, FEAT_DIM]."""
         B, V = images.shape[:2]
         x = normalise(images.reshape(B * V, *images.shape[2:]))
-        f = Trunk(self.w, self.level, self.q, train)(x)
+        f = self.trunk(train)(x)
         return f.permute(0, 2, 3, 1).reshape(B, V, *f.shape[2:], f.shape[1])
 
     def warp_sum(self, maps: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

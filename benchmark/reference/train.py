@@ -11,7 +11,6 @@ from typing import Dict, List
 
 import torch
 
-from .model import Reference, tf32_off
 from .precision import exact
 
 BUFFER_KINDS = ("bn_mean", "bn_var", "count")
@@ -93,12 +92,13 @@ def learning_rate(cfg: Dict, updates: int, steps_per_epoch: int) -> float:
     return base * min((epoch + 1) / warm, 1.0) * 0.5 * (1 + math.cos(math.pi * min(epoch, total) / total))
 
 
-def steps(cfg: Dict, weights: Dict[str, torch.Tensor], kinds: Dict[str, str], batches: List[Dict[str, torch.Tensor]],
-          steps_per_epoch: int, q=exact) -> Dict[str, object]:
+def steps(reference, cfg: Dict, weights: Dict[str, torch.Tensor], kinds: Dict[str, str],
+          batches: List[Dict[str, torch.Tensor]], steps_per_epoch: int, q=exact) -> Dict[str, object]:
     """The first ``len(batches)`` calls of the training step from
-    ``weights``: each call's total loss, the first call's gradient as the
-    optimizer holds it, and each parameter's change over the calls."""
-    tf32_off()
+    ``weights``, on the forward of the configuration's ``reference`` module:
+    each call's total loss, the first call's gradient as the optimizer holds
+    it, and each parameter's change over the calls."""
+    reference.tf32_off()
     t = cfg["TRAIN"]
     accum, wd = max(1, int(t.get("ACCUM_STEPS", 1))), float(t.get("WEIGHT_DECAY", 0.0))
     if str(t.get("OPT", "Adam")).lower() != "adam":
@@ -111,7 +111,7 @@ def steps(cfg: Dict, weights: Dict[str, torch.Tensor], kinds: Dict[str, str], ba
     acc = {k: torch.zeros_like(v) for k, v in params.items()}
     losses, grad1, updates = [], None, 0
     for call, b in enumerate(batches):
-        ref = Reference(cfg, w, q)
+        ref = reference.Reference(cfg, w, q)
         out = ref.forward(b["images"], b["K"], b["Rt"], train=True)
         total = loss(out, targets(b["boxes_world"], b["num_boxes"], cfg), cfg)
         grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
@@ -136,9 +136,7 @@ def steps(cfg: Dict, weights: Dict[str, torch.Tensor], kinds: Dict[str, str], ba
     return {"losses": losses, "grad": grad1, "update": update}
 
 
-def kinds_of(cfg: Dict) -> Dict[str, str]:
-    from .model import param_specs
-
+def kinds_of(reference, cfg: Dict) -> Dict[str, str]:
     m = dict(cfg["MODEL"], VIEWS=cfg["DATA"]["VIEWS"])
-    return {n: k for n, _, k in param_specs(m)}
+    return {n: k for n, _, k in reference.param_specs(m)}
 

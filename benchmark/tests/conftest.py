@@ -29,6 +29,15 @@ def need_card():
         pytest.skip("needs a CUDA device")
 
 
+def configuration(name: str):
+    """(the reference module that configuration ``name``'s file names, as
+    the harness resolves it; the file's config)."""
+    from benchmark.harness.cell import reference
+
+    cfile = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
+    return reference(name, cfile), cfile["config"]
+
+
 def tiny(cfg: dict) -> dict:
     """A configuration cut to a size the CPU runs in seconds (widths kept)."""
     cfg["DATA"]["IMG_SIZE"] = [3, 64, 112]

@@ -2,11 +2,13 @@
 each cell with the timed path broken underneath comes out not correct,
 under the cell's own limits: the control (the reference computed in the
 precision below the configuration's, put in the program's place), an
-answer altered where it is produced, half of the batch left out; for
-training also a step that returns its state unchanged and a gradient
-altered. The sound program comes out correct."""
+answer altered where it is produced, half of the batch left out, a heatmap
+that comes out all low or not a number; for training also a step that
+returns its state unchanged and a gradient altered. The sound program comes
+out correct."""
 
 import json
+import math
 import time
 from pathlib import Path
 
@@ -14,7 +16,8 @@ import pytest
 
 from benchmark.harness import cell as cells
 from benchmark.harness.judge import verdict
-from benchmark.tools.faults import Control, altered, gradient_altered, half_batch, train_half_batch, unchanged
+from benchmark.tools.faults import (Control, altered, gradient_altered, half_batch, heatmap_as, train_half_batch,
+                                    unchanged)
 
 from .conftest import tiny
 
@@ -60,7 +63,7 @@ def run(c, fault=None, seconds=1.5, answered=True):
 
 
 SERVING = ["wildtrack.offline_b16", "wildtrack_deform.offline_b16", "wildtrack.live_b1",
-           "wildtrack.offline_prefetch_b16"]
+           "wildtrack.offline_prefetch_b16", "wildtrack_v1_resnet50.offline_b16"]
 CLOSED = [n for n in SERVING if n != "wildtrack.live_b1"]
 
 
@@ -86,6 +89,15 @@ def test_altered_answer_fails(name):
 @pytest.mark.parametrize("name", CLOSED)
 def test_half_batch_fails(name):
     ok, numbers = run(tiny_cell(name), half_batch)
+    assert not ok, numbers
+
+
+@pytest.mark.parametrize("value", [0.0, math.nan], ids=["blank", "not_a_number"])
+@pytest.mark.parametrize("name", SERVING)
+def test_heatmap_with_nobody_fails(name, value):
+    """A heatmap that comes out all low or not a number reports nobody: the
+    people of the reference's that it leaves out fail the comparison."""
+    ok, numbers = run(tiny_cell(name), heatmap_as(value))
     assert not ok, numbers
 
 

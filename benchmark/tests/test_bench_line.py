@@ -2,7 +2,9 @@
 
 import json
 import math
+import shutil
 import types
+from pathlib import Path
 
 import pytest
 
@@ -45,3 +47,26 @@ def test_no_card_no_result(capsys, monkeypatch):
 def test_unknown_workload_raises(bench):
     with pytest.raises(KeyError):
         cells.find(bench, "no.such_cell")
+
+
+@pytest.mark.parametrize("named", [None, "no_such_module", "../reference/model", "precision"])
+def test_config_without_its_reference_fails_in_find(bench, tmp_path, named):
+    """A configuration file with no ``reference`` key, or one that names
+    no module of the tree's ``reference/``, or a module that lacks part of
+    the contract, fails in ``cell.find`` with the configuration's name."""
+    here = Path(cells.HERE)
+    root = tmp_path / "benchmark"
+    for sub in ("traffic", "limits", "reference"):
+        shutil.copytree(here / sub, root / sub)
+    cfile = json.loads((here / "configs" / "wildtrack.json").read_text())
+    del cfile["reference"]
+    if named is not None:
+        cfile["reference"] = named
+    (root / "configs").mkdir()
+    (root / "configs" / "wildtrack.json").write_text(json.dumps(cfile))
+    with pytest.raises(KeyError, match=r"configuration \W*wildtrack\W"):
+        cells.find(bench, "wildtrack.offline_b16", root)
+    cfile["reference"] = "model"  # the same tree with the key in place runs
+    (root / "configs" / "wildtrack.json").write_text(json.dumps(cfile))
+    assert cells.find(bench, "wildtrack.offline_b16", root).reference.Reference
+

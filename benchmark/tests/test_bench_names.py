@@ -76,3 +76,16 @@ def test_layers_are_named_alike(bench):
     text = (ROOT / "PERF.md").read_text()
     for layer in {m["layer"] for m in bench["per_layer"]}:
         assert layer in text, layer
+
+
+def test_every_configuration_names_its_reference(bench):
+    """Every configuration file names an existing module of
+    ``reference/`` that exports the contract, as ``cell.find`` resolves it."""
+    from benchmark.harness.cell import reference
+    from benchmark.reference import CONTRACT
+
+    for c in bench["configs"]:
+        cfile = json.loads((ROOT / c["file"]).read_text())
+        assert (ROOT / "benchmark" / "reference" / f"{cfile['reference']}.py").is_file(), c["name"]
+        mod = reference(c["name"], cfile)
+        assert all(hasattr(mod, k) for k in CONTRACT), c["name"]

@@ -3,6 +3,8 @@ comparison fail them and for ``readings.py --fault`` on the chip. A
 serving fault wraps the loaded artifact, a training fault the train step.
 """
 
+import math
+
 import torch
 
 from benchmark.harness.common import as_served, reference_maps
@@ -20,7 +22,7 @@ class Control:
 
         def fn(images, K, Rt):
             batch = {"images": images.numpy(), "K": K.numpy(), "Rt": Rt.numpy()}
-            return as_served(cfg, reference_maps(cfg, weights, batch, "cpu", "fp8"))
+            return as_served(cfg, reference_maps(self.c.reference, cfg, weights, batch, "cpu", "fp8"))
 
         return fn
 
@@ -42,6 +44,22 @@ def half_batch(serve):
         return out
 
     return fn
+
+
+def heatmap_as(value: float):
+    """The program's heatmap ``value`` everywhere and its detections
+    dropped, as its decode answers such a map: a heatmap that comes out all
+    low (0) or not a number (NaN)."""
+
+    def wrap(serve):
+        def fn(images, K, Rt):
+            out = serve(images, K, Rt)
+            return {**out, "heatmap": torch.full_like(out["heatmap"], value), "boxes": torch.zeros_like(out["boxes"]),
+                    "scores": torch.zeros_like(out["scores"]), "valid": torch.zeros_like(out["valid"])}
+
+        return fn
+
+    return wrap
 
 
 def unchanged(step):
@@ -79,5 +97,5 @@ def gradient_altered(step):
     return fn
 
 
-SERVING = {"altered": altered, "half_batch": half_batch}
+SERVING = {"altered": altered, "half_batch": half_batch, "blank": heatmap_as(0.0), "not_a_number": heatmap_as(math.nan)}
 TRAINING = {"unchanged": unchanged, "half_batch": train_half_batch, "gradient_altered": gradient_altered}
