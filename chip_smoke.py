@@ -5,6 +5,7 @@
     python3 chip_smoke.py --baseline DIR   # kernel rows 1, 2, 4, 5, 7 of the checkout in DIR beside these
     python3 chip_smoke.py --bn-timing        # train-step time with BatchNorm's sums in float64 and float32
     python3 chip_smoke.py --bn-act           # the one-pass eval BatchNorm kernel (phase 9's second half) alone
+    python3 chip_smoke.py --mvdet            # MVDet's serving path and its kernels' shapes (phase 11's end) alone
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -119,7 +120,18 @@ Phases, each of which raises on failure (exit code != 0):
    request times, peak memory, one launch of sample_tiles_grouped a
    request, the heatmaps with the kernel against its plain version, and
    sample_tiles_grouped at the shape a batch-16 request gives it (held to
-   its plain version, timed, bound);
+   its plain version, timed, bound); then MVDet
+   (configs/torch/wildtrack_mvdet.yaml: a dilated ResNet-18 on 7 views of
+   720x1280, each map upsampled to 270x480 and warped apart at 512
+   channels) at batch 16, bf16, random weights, ring cameras:
+   sample_tiles_grouped on the inputs a request gives it (G = 112, K =
+   512, N = 43,200) bit-equal to its plain version, timed, bound; the
+   batch-16 artifact loaded as one CUDA graph, its launches at the load
+   exactly one sample_tiles_grouped and 20 bn_act a request, one profiled
+   replay's device kernels exactly one sample_kernel and 20 bn_act, the
+   replay's detections equal to eager serving's; bn_act at every distinct
+   shape of the trunk's 20 eval BatchNorms (N = 112, C 64 to 512, 360x640
+   to 90x160, no SiLU) by phase 9's rule, timed;
 12. the ResNet family trained: each of the three configs as it stands
    (batch 1 f32; batch 2, ACCUM_STEPS 2, bf16; batch 4 bf16) and the sanity
    config with MODEL.NORM group, through the training phase's readings
@@ -689,8 +701,10 @@ RESNET50_WIDE = (2048, 9, 15)  # ResNet-50's last stage at 270x480: C = 2,048, a
 # eval BatchNorms a bf16 request runs, each one bn_act launch (B0 to stride 8:
 # the stem, stage 0's two, stages 1 and 2's six; ResNet-50 and -18 to their
 # OUT_INDEX); wildtrack_sanity is f32 and an int8 encoder folds its norms
+# MVDet's ResNet-18 to C5: the stem's, layer1's four, five in each later
+# layer, the residual projections' included
 BN_ACT_A_REQUEST = {"flagship": 15, "flagship per-frame": 15, "deform": 15, "sanity": 0, "resnet50": 24,
-                    "ms_max": 10}
+                    "ms_max": 10, "mvdet": 20}
 COLD_BYTES = 200e6  # inputs cycled through per timed launch: four times the 50 MB L2
 
 
@@ -774,10 +788,12 @@ def bn_act_case(label, x, mean, var, weight, bias, eps, act):
     check(torch.equal(got, again), f"[bn_act] {label}: two launches differ")
     ref = bn_act_ref(x, mean, var, weight, bias, eps, act)
     ulps = bf16_ulps_apart(got, ref)
-    worst, same = int(ulps.max()), float((ulps == 0).float().mean())
+    # shares from whole counts: a float32 mean of 1.7e9 ones need not be 1
+    worst, same = int(ulps.max()), 1.0 - int((ulps != 0).sum()) / ulps.numel()
     far = ulps > 1
     far_ref = float(ref.float().abs()[far].max()) if bool(far.any()) else 0.0
-    flax_same = float((bf16_ulps_apart(got, flax_order_ref(x, mean, var, weight, bias, eps, act)) == 0).float().mean())
+    apart = bf16_ulps_apart(got, flax_order_ref(x, mean, var, weight, bias, eps, act)) != 0
+    flax_same = 1.0 - int(apart.sum()) / apart.numel()
     ok = flax_same == 1.0 and same >= 0.999
     log(f"[bn_act] {label}: {x.numel()} elements, {100 * flax_same:.4f} % bit-equal to the Flax-order ops; "
         f"against the plain version {100 * same:.4f} % bit-equal, max {worst} bf16 ulp, {int(far.sum())} more "
@@ -2835,6 +2851,159 @@ def resnet_serving_phase(dev):
     return total, readings
 
 
+MVDET = ROOT / "configs" / "torch" / "wildtrack_mvdet.yaml"
+MVDET_BATCH = 16  # the offline cell's request
+
+
+def is_kernel(key: str, name: str) -> bool:
+    """A device kernel's name holds ``name`` as a word of its own (so
+    ``sample_kernel`` is not ``upsample_kernel``)."""
+    return re.search(rf"(?<![A-Za-z0-9_]){name}", key) is not None
+
+
+def mvdet_phase(dev):
+    """MVDet at its published widths (:data:`MVDET`) at batch 16, bf16,
+    random weights from init_state_dict, ring cameras: one eager request
+    through build_serving_fn (one sample_tiles_grouped and 20 bn_act
+    launches; the inputs of its sampler call kept, the shapes its eval
+    BatchNorms see read by hooks); row 4 on those inputs (G = 112, K = 512,
+    N = 43,200, a 270x480 map a group) bit-equal to its plain version and
+    timed; the batch-16 artifact exported and loaded as one CUDA graph,
+    the launches at the load those of the capture's eager requests exactly,
+    one profiled replay's device kernels exactly one ``sample_kernel`` and
+    20 ``bn_act`` ones with the counters at 0 before it and after it, the
+    replay's detections equal to the eager request's; then bn_act at each
+    distinct shape the BatchNorms saw, held by :func:`bn_act_case` and
+    timed as the model runs it. Returns the launches."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsta_tpu_torch.config import load_config
+    from vsta_tpu_torch.convert import init_state_dict
+    from vsta_tpu_torch.export import WARMUP_REQUESTS, export_serving, load_serving, save_exported
+    from vsta_tpu_torch.models.encoders.norm import BatchNorm
+    from vsta_tpu_torch.ops import grouped_cuda as gc
+    from vsta_tpu_torch.ops.bn_act_cuda import layout
+    from vsta_tpu_torch.serving import build_serving_fn
+
+    B = MVDET_BATCH
+    cfg = load_config(str(MVDET))
+    m, V, (Hb, Wb) = cfg.model, cfg.data.views, cfg.model.bev_size
+    state = init_state_dict(cfg, seed=0)
+    args = tuple(torch.as_tensor(a, device=dev) for a in serve_inputs(cfg, B=B))
+    counters = all_counters()
+    total = {c.__name__: 0 for c in counters}
+    a_request = {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST["mvdet"]}
+    torch.cuda.empty_cache()
+
+    serve = build_serving_fn(cfg, state, device=dev)
+    model = serve.model
+    store, seen = {}, []
+    hooks = [n.register_forward_hook(lambda n, a, kw, out: seen.append(
+                 (tuple(a[0].shape), kw.get("act"), layout(a[0]), n.eps)), with_kwargs=True)
+             for n in model.encoder.modules() if isinstance(n, BatchNorm)]
+    model.grouped = capturing_kernels(store)
+    reset(counters)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = serve(*args)
+        torch.cuda.synchronize()
+    finally:
+        model.grouped = gc.KERNELS
+        for h in hooks:
+            h.remove()
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"[mvdet] eager B={B}: launches {json.dumps(launches)}, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {len(seen)} eval BatchNorms")
+    check(launches == {k: a_request.get(k, 0) for k in launches}, f"[mvdet] eager request launches {launches}")
+    total = {k: total[k] + launches[k] for k in total}
+    check_served(cfg, out, B)
+    want = {k: out[k].clone() for k in ("boxes", "scores", "valid", "heatmap")}
+    del serve, model, out
+    torch.cuda.empty_cache()
+
+    maps, idx, wts = store.pop("sample_tiles_grouped")
+    check((maps.shape[0], idx.shape[1], maps.shape[2], maps.dtype) == (B * V, Hb * Wb, m.feat_dim, torch.bfloat16),
+          f"[mvdet] the sampler's inputs {tuple(maps.shape)} {tuple(idx.shape)} {maps.dtype}")
+    got = gc.sample_tiles_grouped(maps, idx, wts)
+    err = hold(f"sample_tiles_grouped mvdet serving B={B}", got, gc.sample_tiles_grouped_ref(maps, idx, wts), "exact")
+    check(torch.equal(got, gc.sample_tiles_grouped(maps, idx, wts)), "[mvdet] sample_tiles_grouped: two launches differ")
+    sample = {"path": f"mvdet serving B={B}", **measure(dev, "sample_tiles_grouped", maps, got, idx, wts, err,
+                                                         library=False)}
+    del maps, idx, wts, got
+    store.clear()
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="vsta_mvdet_")
+    try:
+        path = Path(tmp) / f"mvdet_b{B}.pt"
+        save_exported(export_serving(cfg, state, batch_size=B, platforms=(dev.type,)), path)
+        reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        served = load_serving(path, device=dev)
+        load_s = time.perf_counter() - t
+        launches = {c.__name__: c.launches for c in counters}
+        per_load = {k: a_request.get(k, 0) * (WARMUP_REQUESTS + 2) for k in launches}
+        log(f"[mvdet] artifact B={B} loaded and captured in {load_s:.1f}s: launches {json.dumps(launches)}, "
+            f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+        check(launches == per_load, f"[mvdet] launches at the load {launches} != {per_load}")
+        total = {k: total[k] + launches[k] for k in total}
+        replayed = served(*args)
+        check_served(cfg, replayed, B)
+        for k, v in want.items():
+            check(torch.equal(replayed[k], v), f"[mvdet] replayed {k} differs from the eager request "
+                                                f"(max {float((replayed[k].float() - v.float()).abs().max()):.3e})")
+        torch.cuda.synchronize()
+        reset(counters)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            served(*args)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_replay = {name: sum(is_kernel(k, name) for k in kernels) for name in ("sample_kernel", "bn_act")}
+        log(f"[mvdet] one profiled replay: {len(kernels)} device operations, {json.dumps(per_replay)}, "
+            f"wrapper launches {sum(c.launches for c in counters)}")
+        check(all(c.launches == 0 for c in counters), "[mvdet] a replay went through a Python kernel wrapper")
+        check(per_replay == {"sample_kernel": 1, "bn_act": a_request["bn_act"]},
+              f"[mvdet] one replay's kernels {per_replay}")
+        replay_ms = request_ms(served, args, n=5)
+        log(f"[mvdet] replay B={B}: median {replay_ms[0]:.2f} ms, p90 {replay_ms[1]:.2f} ms "
+            f"({B / replay_ms[0] * 1e3:.1f} frame sets/s); valid dets/frame "
+            f"{float(replayed['valid'].float().sum(1).mean()):.1f}")
+        del served, replayed
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    del args, want
+    torch.cuda.empty_cache()
+
+    shapes = {}
+    for shape, act, lay, eps in seen:
+        shapes[(shape, act, lay, eps)] = shapes.get((shape, act, lay, eps), 0) + 1
+    log(f"[mvdet] the trunk's eval BatchNorms ((N, C, H, W), act, layout, eps): count "
+        + json.dumps([[list(k[0]), k[1], k[2], k[3], n] for k, n in shapes.items()]))
+    check(sum(shapes.values()) == a_request["bn_act"] and all(k[1] is None and k[2] == "nhwc" for k in shapes),
+          f"[mvdet] {sum(shapes.values())} eval BatchNorms, not {a_request['bn_act']} channels-last without SiLU")
+    worst, rows = 0, []
+    for i, ((shape, act, _, eps), n) in enumerate(shapes.items()):
+        x = bn_act_inputs(dev, *shape, "nhwc", seed=3000 + i)
+        worst = max(worst, bn_act_case(f"mvdet N={shape[0]} C={shape[1]} {shape[2]}x{shape[3]} nhwc {act}", *x, eps, act))
+        ms, plain_ms, bound_ms = bn_act_times(dev, *x, eps, act)
+        rows.append({"C": shape[1], "HxW": f"{shape[2]}x{shape[3]}", "n": n, "ms": round(ms, 4),
+                     "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 4), "share": round(bound_ms / ms, 3)})
+        del x
+        torch.cuda.empty_cache()
+    request = {k: sum(r[k] * r["n"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[mvdet] bn_act as the trunk runs it, ms a launch: {json.dumps(rows)}; a request's "
+        f"{a_request['bn_act']}: kernel {request['ms']:.4f} ms, plain version {request['plain_ms']:.4f} ms, bound "
+        f"{request['bound_ms']:.4f} ms (share {request['bound_ms'] / request['ms']:.3f}), max {worst} bf16 ulp")
+    log("[mvdet] sample_tiles_grouped: " + json.dumps(sample))
+    return total
+
+
 def resnet_training_phase(dev):
     """Each shipped ResNet config's train step as the config stands
     (sanity: batch 1, f32; ResNet-50: batch 2, ACCUM_STEPS 2, bf16; ms_max:
@@ -3991,6 +4160,9 @@ def main() -> int:
     if "--bn-act" in sys.argv:  # the one-pass BatchNorm kernel alone
         bn_act_phase(dev)
         return 0
+    if "--mvdet" in sys.argv:  # MVDet's serving path alone
+        mvdet_phase(dev)
+        return 0
 
     t = time.perf_counter()
     entries = kernel_phase(dev)
@@ -4016,6 +4188,9 @@ def main() -> int:
     t = time.perf_counter()
     resnet_serve, serve_readings = resnet_serving_phase(dev)
     log(f"[resnet-serve] phase {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    mvdet_serve = mvdet_phase(dev)
+    log(f"[mvdet] phase {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     export_launches, _ = export_phase(dev)
     log(f"[export] phase {time.perf_counter() - t:.1f}s")
@@ -4064,13 +4239,14 @@ def main() -> int:
     # run: flagship serving (both warp dispatches), training and the loop, deform
     # serving and training (ATTN_STRIDE 4 and 1), both families with
     # per-frame cameras, the max and attn fusions, the three ResNet configs
-    # served and trained (and sanity with GroupNorm), the exported artifacts
+    # served and trained (and sanity with GroupNorm), MVDet served (its eager
+    # request and its artifact's capture), the exported artifacts
     # (counted at their capture: a replay goes through no Python wrapper), the mesh runs (a world of
     # one and both ranks of each two-rank world), and the harnesses' processes (the e2e phase: training
     # and eval, the exports, the serve CLIs' warm-ups and captures). The ablation variants
     # are on no model path: their count is the attribution run's.
     paths = [train, loop, deform_serve, deform_train, *perframe_serve, fusion_serve, perframe_train, fusion_train,
-             resnet_serve, resnet_train, export_launches, mesh, e2e]
+             resnet_serve, resnet_train, mvdet_serve, export_launches, mesh, e2e]
     on_paths = {k: sum(path.get(k, 0) for path in paths) for k in train}
     entries += [views_entry, ablation_entry]
     counts = {

@@ -2,7 +2,9 @@
 
 The port's own copy of the JAX package's YAML schema (sections
 DATA/MODEL/TRAIN/LOSS/RUNTIME/EVAL/TRACK, same key names and defaults),
-backed by frozen dataclasses. ``RUNTIME.DEVICE`` is obeyed by the
+backed by frozen dataclasses. Three MODEL keys are the port's own, for
+MVDet's detector (``HEAD: mvdet``): ``DILATION``, ``FEAT_SIZE`` and
+``HEAD``; their defaults build every model the JAX package builds. ``RUNTIME.DEVICE`` is obeyed by the
 training loop and the train/evaluate CLIs (``cpu``, or the CUDA device for
 any other value: ``utils/platform.runtime_device``); the library entry
 points (``build_serving_fn``, ``create_state``) take the device as an
@@ -75,6 +77,24 @@ class ModelConfig:
     # its residual is bilinearly upsampled: sampling work drops by
     # stride^2. 1 = full resolution.
     attn_stride: int = 4
+    # the port's own keys (MVDet: hou-yz/MVDet, persp_trans_detector.py).
+    # torchvision's replace_stride_with_dilation for the ResNets' stages
+    # 2..4: a dilated stage keeps its input's stride and dilates its 3x3s
+    # instead (MVDet's ResNet-18: [false, true, true], stride 8 at C5)
+    dilation: Tuple[bool, bool, bool] = (False, False, False)
+    # (H, W) the per-view maps are resized to, bilinearly, before the
+    # warp; (0, 0): warped at the trunk's own size
+    feat_size: Tuple[int, int] = (0, 0)
+    # 'centernet' (the GroupNorm stem and its heatmap, offset and size
+    # outputs) or 'mvdet' (MVDet's map classifier over the concatenated
+    # per-view warps, an occupancy map alone: models/heads.MVDetHead; its
+    # encoder has no projection, so FEAT_DIM is the trunk's channels).
+    # mvdet fixes three keys, which a configuration states as they are and
+    # validate() holds it to: FUSION concat and WARP_IMPL gather (each
+    # view warped apart, the warps side by side) and BEV_PROJ_CH = FEAT_DIM
+    # (the channels a view carries into the warp, which the benchmark's
+    # operation count reads)
+    head: str = "centernet"
 
     @property
     def bev_h(self) -> int:
@@ -177,6 +197,7 @@ def _get(d: Dict[str, Any], key: str, default: Any) -> Any:
 
 
 VALID_FUSION = ("concat", "mean", "max", "sum", "attn", "deform_attn")
+VALID_HEADS = ("centernet", "mvdet")
 VALID_WARP_IMPL = ("fused", "gather", "pallas")
 VALID_BACKBONES = (
     "simple",
@@ -222,7 +243,34 @@ def validate(cfg: Config) -> Config:
         # detector stem uses GroupNorm(32) (ref detector.py:18-26)
         if val < 32 or val % 32 != 0:
             raise ValueError(f"MODEL.{key} must be a positive multiple of 32, got {val}")
+    _validate_head(cfg.model)
     return cfg
+
+
+def _validate_head(m: ModelConfig) -> None:
+    """The port's own keys: MVDet's detector, and what it needs."""
+    if m.head not in VALID_HEADS:
+        raise ValueError(f"MODEL.HEAD={m.head!r} is not one of {VALID_HEADS}")
+    if len(m.dilation) != 3:
+        raise ValueError(f"MODEL.DILATION must list 3 stages (2 to 4), got {list(m.dilation)}")
+    if any(m.dilation) and not m.backbone.startswith("resnet"):
+        raise ValueError(f"MODEL.DILATION is for the resnet backbones, not {m.backbone!r}")
+    if len(m.feat_size) != 2 or any(s < 0 for s in m.feat_size):
+        raise ValueError(f"MODEL.FEAT_SIZE must be [H, W] (or [0, 0]), got {list(m.feat_size)}")
+    if m.head == "centernet":
+        if any(m.feat_size):
+            raise ValueError("MODEL.FEAT_SIZE is for HEAD mvdet")
+        return
+    wants = {"FUSION": (m.fusion, "concat"), "WARP_IMPL": (m.warp_impl, "gather"),
+             "BEV_PROJ_CH": (m.bev_proj_ch, m.feat_dim)}
+    for key, (got, want) in wants.items():
+        if got != want:
+            raise ValueError(f"MODEL.HEAD mvdet warps every view's map apart and concatenates them: "
+                             f"MODEL.{key} must be {want!r}, got {got!r}")
+    if not all(m.feat_size):
+        raise ValueError("MODEL.HEAD mvdet needs MODEL.FEAT_SIZE, the size its maps are warped at")
+    if not isinstance(m.out_index, int):
+        raise ValueError(f"MODEL.HEAD mvdet takes one pyramid level, got MODEL.OUT_INDEX={m.out_index!r}")
 
 
 def from_dict(raw: Dict[str, Any]) -> Config:
@@ -282,6 +330,9 @@ def from_dict(raw: Dict[str, Any]) -> Config:
             attn_heads=int(_get(m, "ATTN_HEADS", 4)),
             attn_points=int(_get(m, "ATTN_POINTS", 4)),
             attn_stride=int(_get(m, "ATTN_STRIDE", 4)),
+            dilation=tuple(bool(x) for x in _get(m, "DILATION", [False, False, False])),
+            feat_size=tuple(int(x) for x in _get(m, "FEAT_SIZE", [0, 0])),
+            head=str(_get(m, "HEAD", "centernet")),
         ),
         train=TrainConfig(
             epochs=int(_get(t, "EPOCHS", 50)),
@@ -354,6 +405,7 @@ def to_dict(cfg: Config) -> Dict[str, Any]:
             "BEV_PROJ_CH": m.bev_proj_ch, "WARP_IMPL": m.warp_impl, "FUSION": m.fusion,
             "STATIC_CAMERAS": m.static_cameras, "HEAD_MID1": m.head_mid1, "HEAD_MID2": m.head_mid2,
             "ATTN_HEADS": m.attn_heads, "ATTN_POINTS": m.attn_points, "ATTN_STRIDE": m.attn_stride,
+            "DILATION": list(m.dilation), "FEAT_SIZE": list(m.feat_size), "HEAD": m.head,
         },
         "TRAIN": {
             "EPOCHS": t.epochs, "LR": t.lr, "OPT": t.opt, "WEIGHT_DECAY": t.weight_decay,

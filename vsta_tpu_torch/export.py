@@ -77,7 +77,10 @@ def calibrate_quant_head(
     the float model's own ``bev_feat`` maps calibrate the detector stem
     (:func:`~vsta_tpu_torch.ops.quant.quantize_head`). Pass
     ``quant_encoder`` when the deployment runs both int8 stages, so that
-    the head calibrates on the maps it will see. The tree is on ``device``."""
+    the head calibrates on the maps it will see. The tree is on ``device``.
+    The CenterNet head only: ``HEAD: mvdet`` raises ``ValueError``."""
+    if cfg.model.head != "centernet":
+        raise ValueError(f"head quantization takes the CenterNet head, not MODEL.HEAD {cfg.model.head!r}")
     dev = resolve_device(device)
     model = _model(cfg, state_dict, dev)
     qe = None if quant_encoder is None else tree_to(quant_encoder, dev)
@@ -96,9 +99,13 @@ def calibrate_quant_encoder(
 ) -> Dict:
     """Int8 ResNet-encoder parameters from representative (images, K, Rt)
     batches (:func:`~vsta_tpu_torch.ops.quant_resnet.quantize_encoder`).
-    The ResNet family with BatchNorm only: anything else raises
-    ``ValueError``. uint8 frames are normalized as the model does."""
+    The ResNet family with BatchNorm, undilated and projected, only:
+    anything else raises ``ValueError``. uint8 frames are normalized as the
+    model does."""
     m = cfg.model
+    if any(m.dilation) or m.head != "centernet":
+        raise ValueError("encoder quantization takes an undilated ResNet with its projection "
+                         f"(MODEL.DILATION {list(m.dilation)}, HEAD {m.head!r})")
     if m.backbone not in RESNET_SPECS:
         raise ValueError(
             f"encoder quantization supports the resnet family, not {m.backbone!r} (BatchNorm-fold PTQ)"

@@ -31,11 +31,22 @@ per-frame cameras (every frame warps under its own ``K``, ``Rt``):
   (:func:`~vsta_tpu_torch.models.fusion.simple_fusion`) and ``attn``
   (:class:`~vsta_tpu_torch.models.fusion.AttentionFusion`), the last four
   followed by the 1x1 ``bev_proj``.
+* MVDet (``HEAD: mvdet``, Hou et al., arXiv:2007.07247): the encoder
+  without its projection (a ResNet whose last stages may be dilated), every
+  view's map resized bilinearly to ``FEAT_SIZE`` (``F.interpolate``,
+  half-pixel, as MVDet's upsample), warped by
+  :func:`~vsta_tpu_torch.ops.grouped_cuda.warp_views`, the views' BEV maps
+  concatenated in camera order, then
+  :class:`~vsta_tpu_torch.models.heads.MVDetHead` (which adds its own
+  coordinate channels) in place of the positional encoding and the
+  CenterNet head. ``FUSION`` is concat and ``WARP_IMPL`` gather there. It
+  serves; training it raises ``NotImplementedError``.
 
 Inputs and outputs are channels-last, as in the JAX package. The
 forward marks its stages on the device (:func:`~vsta_tpu_torch.utils.tracing.mark`):
 ``encoder`` (the normalization and the encoder), ``fusion`` (the
-geometry, the warp or fusion and the positional channels), ``head``.
+resize, the geometry, the warp or fusion and the positional channels or
+the views' concatenation), ``head``.
 ``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and cuts the
 gradient at the encoder's output.
 
@@ -77,9 +88,10 @@ from ..utils import tracing
 from .encoders.encoder import ViewEncoder
 from .encoders.norm import BatchNorm
 from .fusion import AttentionFusion, DeformableFusion, Dense, simple_fusion
-from .heads import BEVDetectorHead
+from .heads import BEVDetectorHead, MVDetHead
 
 POS_CH = 2
+RESIZE_ELEMENTS = 2**31 - 1  # CUDA's channels-last bilinear resize writes fewer elements a call
 FUSIONS = ("concat", "deform_attn", "sum", "mean", "max", "attn")
 WARP_IMPLS = ("pallas", "fused", "gather")
 
@@ -128,6 +140,9 @@ class BEVNet(nn.Module):
         warp_impl: str = "pallas",
         static_cameras: bool = True,
         norm: str = "batch",
+        dilation: Tuple[bool, bool, bool] = (False, False, False),
+        feat_size: Tuple[int, int] = (0, 0),
+        head: str = "centernet",
         mesh=None,
     ):
         super().__init__()
@@ -145,13 +160,21 @@ class BEVNet(nn.Module):
         self.dtype = dtype
         self.fusion, self.attn_stride = fusion, max(1, attn_stride)
         self.warp_impl, self.static_cameras = warp_impl, static_cameras
+        self.head = head
+        # the size MVDet's maps are resized to before the warp (None: none)
+        self.feat_size = tuple(feat_size) if any(feat_size) else None
         # concat under the fused warps folds the encoder's projection into
         # the view projection; every other fusion works on the projected maps
-        self.fold_proj = fusion == "concat" and warp_impl in ("fused", "pallas")
+        self.fold_proj = head != "mvdet" and fusion == "concat" and warp_impl in ("fused", "pallas")
         self.encoder = ViewEncoder(
-            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=self.fold_proj, norm=norm
+            backbone, feat_dim=feat_dim, out_index=out_index, dtype=dtype, fold_proj=self.fold_proj, norm=norm,
+            proj=head != "mvdet", dilation=dilation,
         )
-        if fusion == "concat":
+        if head == "mvdet":
+            self.detector = MVDetHead(
+                views * feat_dim + POS_CH, bev_bounds, bev_size, default_box_wh, head_mid1, head_mid2, dtype
+            )
+        elif fusion == "concat":
             self.view_proj = nn.Parameter(torch.empty(views, feat_dim, bev_proj_ch))
             self.view_proj_bias = nn.Parameter(torch.zeros(bev_proj_ch))
         elif fusion == "deform_attn":
@@ -164,10 +187,11 @@ class BEVNet(nn.Module):
             if fusion == "attn":
                 self.attn_fusion = AttentionFusion(feat_dim, dtype=dtype)
             self.bev_proj = Dense(feat_dim, bev_proj_ch)  # the 1x1 convolution
-        self.detector = BEVDetectorHead(
-            bev_proj_ch + POS_CH, bev_bounds, bev_size, default_box_wh,
-            head_mid1, head_mid2, dtype,
-        )
+        if head != "mvdet":
+            self.detector = BEVDetectorHead(
+                bev_proj_ch + POS_CH, bev_bounds, bev_size, default_box_wh,
+                head_mid1, head_mid2, dtype,
+            )
         # the kernels the model runs (concat/pallas: a warp kernel, warp
         # for static cameras and views_sum for per-frame ones, and the
         # grouped sampler in its backward; every other path: the grouped
@@ -213,6 +237,9 @@ class BEVNet(nn.Module):
             warp_impl=m.warp_impl,
             static_cameras=m.static_cameras,
             norm=m.norm,
+            dilation=m.dilation,
+            feat_size=m.feat_size,
+            head=m.head,
             mesh=mesh,
         )
 
@@ -232,8 +259,9 @@ class BEVNet(nn.Module):
         [B, V, 4, 4] world->camera (with static cameras frame 0's calibration
         serves the batch; on a sharded mesh, this rank's frames and views).
         On a sharded mesh the images, K and Rt are gathered over 'view'
-        first. Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32;
-        with ``return_per_view`` the unfused fusions add every view's BEV map,
+        first. Returns the head outputs [B, Hb, Wb, *] and 'bev_feat', float32
+        (MVDet: the views' maps side by side, in the compute dtype);
+        with ``return_per_view`` the unfused fusions and MVDet add every view's BEV map,
         'bev_per_view' [B, V, Hb, Wb, C], as the JAX package does.
         ``quant_head`` / ``quant_encoder``: int8 serving trees
         (:mod:`~vsta_tpu_torch.ops.quant`, :mod:`~vsta_tpu_torch.ops.quant_resnet`)
@@ -250,6 +278,8 @@ class BEVNet(nn.Module):
         if images.dtype == torch.uint8:
             images = (images.float() - self.img_mean) * self.img_scale
 
+        if self.head == "mvdet" and (quant_head is not None or quant_encoder is not None):
+            raise ValueError("HEAD mvdet serves in its float dtype: no int8 head or encoder")
         if quant_encoder is not None:
             from ..ops.quant_resnet import apply_quant_encoder  # it imports the trunk's specs from models/
 
@@ -267,8 +297,10 @@ class BEVNet(nn.Module):
         feats, enc_pk, enc_pb = enc_out if self.fold_proj else (enc_out, None, None)
         if self.freeze_backbone:
             feats = feats.detach()
-        _, _, Hf, Wf, _ = feats.shape
         tracing.mark("fusion", feats)
+        if self.feat_size is not None:
+            feats = self.resize_views(feats)
+        _, _, Hf, Wf, _ = feats.shape
         grid = ground_grid(Hb, Wb, self.bev_bounds, device=dev)
         if self.static_cameras:  # [V, Hb, Wb, ...]: one calibration for the batch
             K0, Rt0 = K[0], Rt[0]
@@ -277,6 +309,8 @@ class BEVNet(nn.Module):
             coords, depth_w = bev_sample_coords_with_depth(K0, Rt0, (H, W), (Hf, Wf), grid)
         else:  # [B, V, Hb, Wb, ...]
             coords, depth_w = bev_sample_coords_with_depth(K, Rt, (H, W), (Hf, Wf), grid)
+        if self.head == "mvdet":
+            return self._mvdet(feats, coords, return_per_view)
         pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
         pos = pos[None].expand(B, Hb, Wb, POS_CH)
 
@@ -296,6 +330,43 @@ class BEVNet(nn.Module):
             out = self.detector(bev_feat)
         out["bev_feat"] = bev_feat.float()
         if return_per_view and per_view is not None:
+            out["bev_per_view"] = per_view
+        return out
+
+    def resize_views(self, feats: torch.Tensor) -> torch.Tensor:
+        """feats [B, V, Hf, Wf, C] -> [B, V, *FEAT_SIZE, C]: MVDet's
+        upsample, ``F.interpolate``'s bilinear with half-pixel centres, in
+        the maps' dtype and channels-last memory. CUDA's channels-last
+        kernel takes an output of fewer than :data:`RESIZE_ELEMENTS`, so the images
+        are resized in as few equal runs as keep under that, each written
+        in place into its slice of the one output. An ``out=`` call records
+        no gradient, and MVDet serves only: a gradient wanted here raises
+        ``NotImplementedError``, as training it does."""
+        if torch.is_grad_enabled() and feats.requires_grad:
+            raise NotImplementedError(
+                "MODEL.HEAD mvdet serves only (under torch.no_grad): its resize records no gradient"
+            )
+        B, V, Hf, Wf, C = feats.shape
+        H, W = self.feat_size
+        x = feats.reshape(B * V, Hf, Wf, C).permute(0, 3, 1, 2)
+        most = max(1, (RESIZE_ELEMENTS - 1) // (C * H * W))  # images a run may hold
+        step = -(-(B * V) // -(-(B * V) // most))  # equal runs, as few as hold them
+        y = torch.empty((B * V, H, W, C), dtype=x.dtype, device=x.device)
+        for a in range(0, B * V, step):
+            torch.ops.aten.upsample_bilinear2d.out(
+                x[a:a + step], [H, W], False, None, None, out=y[a:a + step].permute(0, 3, 1, 2)
+            )
+        return y.reshape(B, V, H, W, C)
+
+    def _mvdet(self, feats, coords, return_per_view: bool) -> Dict[str, torch.Tensor]:
+        """The views' warps side by side, then MVDet's classifier."""
+        per_view = self.per_view(feats, coords)
+        B, V, Hb, Wb, C = per_view.shape
+        bev_feat = per_view.permute(0, 2, 3, 1, 4).reshape(B, Hb, Wb, V * C)
+        tracing.mark("head", bev_feat)
+        out = self.detector(bev_feat)
+        out["bev_feat"] = bev_feat
+        if return_per_view:
             out["bev_per_view"] = per_view
         return out
 

@@ -13,8 +13,12 @@ coarser maps are resized bilinearly to the finest selected one
 ``jax.image.resize``) and the channels concatenated before the 1x1
 projection. With ``fold_proj`` the projection is not applied: the encoder
 returns the raw map with the projection's kernel [C_raw, F] and bias [F],
-for the caller to fold into the next linear op. Internally the maps are
-NCHW tensors in channels-last memory, so the NHWC views are free.
+for the caller to fold into the next linear op. With ``proj`` False there
+is no projection (MVDet's encoder): the selected level is the output, and
+``feat_dim`` must be its channels. ``dilation`` (the ResNets only) is
+:class:`~vsta_tpu_torch.models.encoders.resnet.ResNetFeatures`'. Internally
+the maps are NCHW tensors in channels-last memory, so the NHWC views are
+free.
 """
 
 from __future__ import annotations
@@ -34,10 +38,13 @@ B0_CHANNELS = (16, 24, 40, 112, 320)
 
 
 def build_backbone(
-    name: str, dtype: torch.dtype = torch.float32, feat_dim: int = 32, norm: str = "batch"
+    name: str, dtype: torch.dtype = torch.float32, feat_dim: int = 32, norm: str = "batch",
+    dilation: Tuple[bool, bool, bool] = (False, False, False),
 ) -> nn.Module:
     if name in RESNET_SPECS:
-        return ResNetFeatures(name, dtype, norm)
+        return ResNetFeatures(name, dtype, norm, dilation)
+    if any(dilation):
+        raise ValueError(f"dilation is for the resnet backbones, not {name!r}")
     if norm != "batch":
         raise ValueError(
             f"MODEL.NORM={norm!r} is only supported for resnet backbones "
@@ -65,13 +72,21 @@ class ViewEncoder(nn.Module):
         dtype: torch.dtype = torch.float32,
         fold_proj: bool = False,
         norm: str = "batch",
+        proj: bool = True,
+        dilation: Tuple[bool, bool, bool] = (False, False, False),
     ):
         super().__init__()
         self.levels = tuple(out_index) if isinstance(out_index, (tuple, list)) else (out_index,)
         self.fold_proj = fold_proj
-        self.backbone = build_backbone(backbone, dtype, feat_dim, norm)
-        channels = pyramid_channels(backbone, feat_dim)
-        self.proj = nn.Conv2d(sum(channels[i] for i in self.levels), feat_dim, 1)
+        self.backbone = build_backbone(backbone, dtype, feat_dim, norm, dilation)
+        channels = sum(pyramid_channels(backbone, feat_dim)[i] for i in self.levels)
+        if proj:
+            self.proj = nn.Conv2d(channels, feat_dim, 1)
+        elif fold_proj or channels != feat_dim:
+            raise ValueError(f"an encoder without its projection returns the trunk's {channels} channels "
+                             f"as they are: FEAT_DIM must be {channels}, got {feat_dim}, and nothing to fold")
+        else:
+            self.proj = None
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, 3, H, W] -> the selected level, or the selected levels at
@@ -93,5 +108,7 @@ class ViewEncoder(nn.Module):
             kernel = self.proj.weight[:, :, 0, 0].t()
             nhwc = feat.permute(0, 2, 3, 1)
             return nhwc.reshape((B, V) + nhwc.shape[1:]), kernel, self.proj.bias
-        nhwc = conv(feat, self.proj).permute(0, 2, 3, 1)
+        if self.proj is not None:
+            feat = conv(feat, self.proj)
+        nhwc = feat.permute(0, 2, 3, 1)
         return nhwc.reshape((B, V) + nhwc.shape[1:])

@@ -7,6 +7,14 @@ four times that for the bottlenecks of ResNet-50/101 (C3 = 512 for
 ResNet-50). Padding is torch's, symmetric: (3, 3) for the 7x7 stem,
 (1, 1) for every 3x3 and for the max-pool (with -inf), none for a 1x1.
 
+``dilation`` is torchvision's ``replace_stride_with_dilation`` for
+stages 2 to 4 (MVDet's ResNet-18: ``(False, True, True)``): a dilated
+stage keeps its input's stride, the stride its first block would take
+multiplies the dilation instead, and, as torchvision's ``_make_layer``,
+the stage's first block keeps the dilation before it while the later ones
+take the new one. Every 3x3 of a block takes the block's dilation, padded
+by it; the 1x1s take none. The default dilates nothing.
+
 ``norm`` is ``'batch'`` (Flax-style BatchNorm, eps 1e-5) or ``'group'``
 (GroupNorm-32, eps 1e-5). A block's convolutions and norms sit in
 ``convs`` / ``norms`` in Flax's creation order (``Conv_k`` ->
@@ -49,15 +57,16 @@ def make_norm(kind: str, ch: int) -> nn.Module:
 
 
 def _conv(x: torch.Tensor, c: nn.Conv2d) -> torch.Tensor:
-    return F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding)
+    return F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding, c.dilation)
 
 
 class Block(nn.Module):
     """A basic block (two 3x3) or a bottleneck (1x1, 3x3, 1x1 to four
-    times ``filters``); the stride sits on the 3x3. The residual is
-    projected by a strided 1x1 and a norm where the shape changes."""
+    times ``filters``); the stride sits on the 3x3, and ``dilation`` on
+    every 3x3. The residual is projected by a strided 1x1 and a norm where
+    the shape changes."""
 
-    def __init__(self, in_ch: int, filters: int, stride: int, bottleneck: bool, norm: str):
+    def __init__(self, in_ch: int, filters: int, stride: int, bottleneck: bool, norm: str, dilation: int = 1):
         super().__init__()
         if bottleneck:
             out_ch = 4 * filters
@@ -69,7 +78,10 @@ class Block(nn.Module):
         self.project = stride != 1 or in_ch != out_ch
         if self.project:
             specs.append((in_ch, out_ch, 1, stride))
-        self.convs = nn.ModuleList(nn.Conv2d(i, o, k, s, k // 2, bias=False) for i, o, k, s in specs)
+        self.convs = nn.ModuleList()
+        for i, o, k, s in specs:
+            d = dilation if k == 3 else 1  # the 3x3s take the block's dilation
+            self.convs.append(nn.Conv2d(i, o, k, s, d * (k // 2), d, bias=False))
         self.norms = nn.ModuleList(make_norm(norm, o) for _, o, _, _ in specs)
 
     @property
@@ -98,19 +110,25 @@ class ResNetFeatures(nn.Module):
     the trunk stops at the last requested level in training as well.
     """
 
-    def __init__(self, variant: str = "resnet18", dtype: torch.dtype = torch.float32, norm: str = "batch"):
+    def __init__(
+        self, variant: str = "resnet18", dtype: torch.dtype = torch.float32, norm: str = "batch",
+        dilation: Tuple[bool, bool, bool] = (False, False, False),
+    ):
         super().__init__()
         bottleneck, stage_sizes = RESNET_SPECS[variant]
         self.dtype, self.norm = dtype, norm
         self.stem_conv = nn.Conv2d(3, WIDTH, 7, 2, 3, bias=False)
         self.stem_bn = make_norm(norm, WIDTH)
         self.stages = nn.ModuleList()
-        in_ch = WIDTH
+        in_ch, rate = WIDTH, 1
         for i, n_blocks in enumerate(stage_sizes):
+            stride, first = (2 if i > 0 else 1), rate
+            if i > 0 and dilation[i - 1]:  # the stride becomes dilation
+                stride, rate = 1, rate * stride
             blocks = nn.ModuleList()
             for j in range(n_blocks):
-                stride = 2 if (i > 0 and j == 0) else 1
-                blocks.append(Block(in_ch, WIDTH * 2**i, stride, bottleneck, norm))
+                blocks.append(Block(in_ch, WIDTH * 2**i, stride if j == 0 else 1, bottleneck, norm,
+                                    first if j == 0 else rate))
                 in_ch = WIDTH * 2**i * (4 if bottleneck else 1)
             self.stages.append(blocks)
 

@@ -107,8 +107,21 @@ def batch_to_device(batch: Batch, dev: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def check_trainable(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` for a model the port serves but does
+    not train: MVDet's detector (``HEAD: mvdet``), whose loss (a
+    Gaussian-smoothed MSE on the map, plus per-view foot and head maps from
+    an image classifier the port does not build) is not ported."""
+    if cfg.model.head == "mvdet":
+        raise NotImplementedError(
+            "MODEL.HEAD mvdet serves only: MVDet's loss (the smoothed-MSE occupancy map and the per-view "
+            "image classifier's maps) is not ported, so it cannot train"
+        )
+
+
 def loss_fn(cfg: Config, model: BEVNet, batch: Mapping[str, torch.Tensor]) -> Metrics:
     """Targets, the forward in training mode and the four losses."""
+    check_trainable(cfg)
     l, m = cfg.loss, cfg.model
     with torch.no_grad():
         targets = build_targets(
@@ -177,7 +190,9 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Batch], Metrics]:
     step marks ``end`` after the loss, so the backward lies outside them;
     a call is the host spans ``train.loss`` (targets, forward, loss),
     ``train.backward`` and ``train.optimizer``, each tagged with
-    ``state.step`` (:mod:`~vsta_tpu_torch.utils.tracing`)."""
+    ``state.step`` (:mod:`~vsta_tpu_torch.utils.tracing`). A model the
+    port does not train raises ``NotImplementedError`` here (:func:`check_trainable`)."""
+    check_trainable(cfg)
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
         b = batch_to_device(batch, state.device)
