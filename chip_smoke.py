@@ -1066,13 +1066,13 @@ def measure(dev, kind, maps, gout, i, w, max_abs_err, library=True):
     from vsta_tpu_torch.utils.timing import cuda_ms
 
     Gm, Pm, Km = maps.shape
-    Nm = i.shape[1]
+    Nm, T = i.shape[1:]
     itemsize = maps.element_size()
     live = w != 0
     n_live, n_taps = int(live.sum()), w.numel()
     rows_g = torch.arange(Gm, device=dev)[:, None, None] * Pm + i
     rows_read = torch.unique(rows_g).numel()
-    idx_bytes, wts_bytes = Gm * Nm * 4 * 4, Gm * Nm * 4 * 4
+    idx_bytes, wts_bytes = Gm * Nm * T * 4, Gm * Nm * T * 4
     map_bytes, gout_bytes = rows_read * Km * itemsize, Gm * Nm * Km * itemsize
     fn, plain, args = {
         "sample_tiles_grouped": (gc.sample_tiles_grouped, gc.sample_tiles_grouped_ref, (maps, i, w)),
@@ -1159,9 +1159,10 @@ def measure(dev, kind, maps, gout, i, w, max_abs_err, library=True):
     split_s = (f" (lut_ms={more['lut_ms']:.4f} + kernel_ms={more['kernel_ms']:.4f})" if "lut_ms" in more else "")
     if kind in ("sample_tiles_grouped", "taps_dot_grouped"):  # out, like maps, is a fresh aligned tensor
         more["partition"] = "V={} L={} S={} cells={} staged={}".format(
-            *gc.library_partition(kind, Km, maps.dtype, maps, maps if kind == "sample_tiles_grouped" else gout))
+            *gc.library_partition(kind, Km, maps.dtype, maps, maps if kind == "sample_tiles_grouped" else gout, T))
         more["device_ms"] = kernel_device_ms(fn, args, KERNEL_NAMES[kind])
         split_s += f" (device_ms={more['device_ms']} [{more['partition']}])"
+        reading.update(partition=more["partition"], device_ms=more["device_ms"])
     log(f"[grouped] {kind} {shape}: ms={ms:.4f}{split_s} plain_ms={plain_ms:.4f} {lib_s} "
         f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}: {nbytes / 1e6:.1f} MB; "
         f"{flops / 1e9:.3f} GFLOP over {n_live} live taps of {n_taps}, {rows_read} map rows touched) "
@@ -1805,11 +1806,15 @@ def dev_us(e):
 
 
 def kernel_device_ms(fn, args, kernel, calls=5):
-    """Mean device time a call of the kernels whose name holds ``kernel``,
-    over ``calls`` calls of fn under torch.profiler: the kernel alone,
-    without the gaps between launches that an event timing of calls as
-    short as the host's launch takes includes. None if the profiler saw
-    no such kernel."""
+    """Mean device time a launch of the kernels whose name holds ``kernel``
+    (one launch a call of fn, for every caller), over the launches the
+    profiler recorded in ``calls`` calls: the kernel alone, without the
+    gaps between launches that an event timing of calls as short as the
+    host's launch takes includes. The divisor is the launches recorded, not
+    ``calls``: late in the full smoke run the profiler has recorded fewer
+    (five calls of the G = 112, K = 512 sampler summed 8.96 ms, three
+    launches at the 2.99 ms its events read). None if the profiler saw no
+    such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
@@ -1818,9 +1823,8 @@ def kernel_device_ms(fn, args, kernel, calls=5):
         for _ in range(calls):
             fn(*args)
         torch.cuda.synchronize()
-    us = [dev_us(e) for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    return sum(us) / 1e3 / calls if us else None
+    seen = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    return sum(dev_us(e) for e in seen) / 1e3 / sum(e.count for e in seen) if seen else None
 
 
 def profile_request(fn, args, label=None) -> None:
@@ -2611,9 +2615,12 @@ def baseline_phase(dev, base_dir):
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"baseline build of {name} failed:\n{text}")
         if name == "grouped_taps":
+            # a source from before 9-tap samples has no taps argument
+            base_taps = "int K, int taps, int dtype" in src.read_text()
             base[name] = ctypes.CDLL(str(lib))
             for fname in ("grouped_sample_launch", "grouped_taps_dot_launch"):
-                getattr(base[name], fname).argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                extra = base_taps and fname == "grouped_sample_launch"
+                getattr(base[name], fname).argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (5 + extra) + [ctypes.c_void_p]
             continue
         fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
         grid_arg = "int grid_w" in src.read_text()
@@ -2641,17 +2648,19 @@ def baseline_phase(dev, base_dir):
         check(rc == 0, f"baseline {name} launch failed ({rc})")
         return out
 
-    def run_grouped(lib, kind, maps, gout, i, w):
+    def run_grouped(lib, kind, maps, gout, i, w, taps_arg):
         """Row 4 or row 5 of ``lib`` through its C entry point, as the
         wrapper calls it: both sides of a turn take the same host path, so
         that at shapes as short as a launch the kernels, not the wrappers'
-        checks, are compared."""
+        checks, are compared. ``taps_arg``: the library's row 4 takes the
+        taps a sample (4 here)."""
         Gm, Pm, Km = maps.shape
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kind == "sample_tiles_grouped":
             out = torch.empty((Gm, i.shape[1], Km), dtype=maps.dtype, device=dev)
             rc = lib.grouped_sample_launch(
-                maps.data_ptr(), i.data_ptr(), w.data_ptr(), out.data_ptr(), Gm, Pm, i.shape[1], Km, code[maps.dtype], stream)
+                maps.data_ptr(), i.data_ptr(), w.data_ptr(), out.data_ptr(), Gm, Pm, i.shape[1], Km,
+                *([4] if taps_arg else []), code[maps.dtype], stream)
         else:
             out = torch.empty((Gm, i.shape[1], 4), dtype=torch.float32, device=dev)
             rc = lib.grouped_taps_dot_launch(
@@ -2698,8 +2707,8 @@ def baseline_phase(dev, base_dir):
     runs.append(("taps_dot_grouped", "s1 f32", (s1[0].float(), s1[1].float(), *s1[2:])))
     mine = gc._library()
     for kind, label, (maps, gout, i, w) in runs:
-        this = lambda: run_grouped(mine, kind, maps, gout, i, w)
-        other = lambda: run_grouped(base["grouped_taps"], kind, maps, gout, i, w)
+        this = lambda: run_grouped(mine, kind, maps, gout, i, w, True)
+        other = lambda: run_grouped(base["grouped_taps"], kind, maps, gout, i, w, base_taps)
         a, b = this(), other()
         diff = float((a.float() - b.float()).abs().max())
         if kind == "sample_tiles_grouped":
@@ -2861,20 +2870,37 @@ def is_kernel(key: str, name: str) -> bool:
     return re.search(rf"(?<![A-Za-z0-9_]){name}", key) is not None
 
 
+def taps_bound_ms(idx, wts, P: int, K: int, itemsize: int = 2) -> float:
+    """The least time of one sample_tiles_grouped launch at these taps:
+    the live taps' distinct map rows read once, the output [G, N, K]
+    written once and an int32 index and a float32 weight a tap read once,
+    over the HBM's bandwidth (benchmark/counts/kernels.sample_grouped's
+    count)."""
+    G, N, T = idx.shape
+    rows = torch.arange(G, device=idx.device)[:, None, None] * P + idx.long()
+    distinct = torch.unique(rows[wts != 0]).numel()
+    return (distinct * K * itemsize + G * N * K * itemsize + G * N * T * 8) / HBM_BYTES_PER_S * 1e3
+
+
 def mvdet_phase(dev):
     """MVDet at its published widths (:data:`MVDET`) at batch 16, bf16,
     random weights from init_state_dict, ring cameras: one eager request
-    through build_serving_fn (one sample_tiles_grouped and 20 bn_act
-    launches; the inputs of its sampler call kept, the shapes its eval
-    BatchNorms see read by hooks); row 4 on those inputs (G = 112, K = 512,
-    N = 43,200, a 270x480 map a group) bit-equal to its plain version and
-    timed; the batch-16 artifact exported and loaded as one CUDA graph,
-    the launches at the load those of the capture's eager requests exactly,
-    one profiled replay's device kernels exactly one ``sample_kernel`` and
-    20 ``bn_act`` ones with the counters at 0 before it and after it, the
-    replay's detections equal to the eager request's; then bn_act at each
-    distinct shape the BatchNorms saw, held by :func:`bn_act_case` and
-    timed as the model runs it. Returns the launches."""
+    through build_serving_fn (one sample_tiles_grouped launch, of 9 taps a
+    sample, and 20 bn_act launches; the inputs of its sampler call kept,
+    the shapes its eval BatchNorms see read by hooks); row 4 on those
+    inputs (G = 112, P = 14,400: the trunk's 90x160 maps, the upsample to
+    270x480 folded into the taps; N = 43,200, K = 512) bit-equal to its
+    plain version and timed against its own bound and against the 4-tap
+    sample of the 270x480 maps that the benchmark's views roofline counts;
+    the batch-16 artifact exported and loaded as one CUDA graph, the
+    launches at the load those of the capture's eager requests exactly,
+    one profiled replay's device kernels exactly one ``sample_kernel`` (its
+    9-tap instantiation), 20 ``bn_act`` ones and no ``upsample_bilinear2d``
+    with the counters at 0 before it and after it, the replay's detections
+    equal to the eager request's; then bn_act at each distinct shape the
+    BatchNorms saw, held by :func:`bn_act_case` and timed as the model
+    runs it; last, row 4 at its 4-tap shapes (:func:`grouped_timing_inputs`)
+    bit-equal and timed, as before 9 taps. Returns the launches."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2882,9 +2908,11 @@ def mvdet_phase(dev):
     from vsta_tpu_torch.config import load_config
     from vsta_tpu_torch.convert import init_state_dict
     from vsta_tpu_torch.export import WARMUP_REQUESTS, export_serving, load_serving, save_exported
+    from vsta_tpu_torch.geometry import bev_sample_coords_with_depth, ground_grid
     from vsta_tpu_torch.models.encoders.norm import BatchNorm
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.bn_act_cuda import layout
+    from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps
     from vsta_tpu_torch.serving import build_serving_fn
 
     B = MVDET_BATCH
@@ -2905,6 +2933,8 @@ def mvdet_phase(dev):
              for n in model.encoder.modules() if isinstance(n, BatchNorm)]
     model.grouped = capturing_kernels(store)
     reset(counters)
+    by_taps = gc.sample_tiles_grouped.launches_by_taps
+    by_taps.update(dict.fromkeys(by_taps, 0))
     try:
         torch.cuda.reset_peak_memory_stats()
         out = serve(*args)
@@ -2914,9 +2944,11 @@ def mvdet_phase(dev):
         for h in hooks:
             h.remove()
     launches = {c.__name__: c.launches for c in counters}
-    log(f"[mvdet] eager B={B}: launches {json.dumps(launches)}, peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {len(seen)} eval BatchNorms")
+    log(f"[mvdet] eager B={B}: launches {json.dumps(launches)}, sample_tiles_grouped by taps a sample "
+        f"{json.dumps(by_taps)}, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{len(seen)} eval BatchNorms")
     check(launches == {k: a_request.get(k, 0) for k in launches}, f"[mvdet] eager request launches {launches}")
+    check(by_taps == {4: 0, 9: 1}, f"[mvdet] sample_tiles_grouped launches by taps a sample {by_taps}")
     total = {k: total[k] + launches[k] for k in total}
     check_served(cfg, out, B)
     want = {k: out[k].clone() for k in ("boxes", "scores", "valid", "heatmap")}
@@ -2924,14 +2956,33 @@ def mvdet_phase(dev):
     torch.cuda.empty_cache()
 
     maps, idx, wts = store.pop("sample_tiles_grouped")
-    check((maps.shape[0], idx.shape[1], maps.shape[2], maps.dtype) == (B * V, Hb * Wb, m.feat_dim, torch.bfloat16),
+    (H, W), (Fh, Fw) = cfg.data.img_size, m.feat_size
+    P = maps.shape[1]  # the trunk's map, 90 x 160 at 720 x 1280
+    check((maps.shape[0], maps.shape[2], tuple(idx.shape[1:]), maps.dtype)
+          == (B * V, m.feat_dim, (Hb * Wb, 9), torch.bfloat16) and P * 9 == Fh * Fw,
           f"[mvdet] the sampler's inputs {tuple(maps.shape)} {tuple(idx.shape)} {maps.dtype}")
     got = gc.sample_tiles_grouped(maps, idx, wts)
     err = hold(f"sample_tiles_grouped mvdet serving B={B}", got, gc.sample_tiles_grouped_ref(maps, idx, wts), "exact")
     check(torch.equal(got, gc.sample_tiles_grouped(maps, idx, wts)), "[mvdet] sample_tiles_grouped: two launches differ")
     sample = {"path": f"mvdet serving B={B}", **measure(dev, "sample_tiles_grouped", maps, got, idx, wts, err,
                                                          library=False)}
-    del maps, idx, wts, got
+    # the bound of this launch from its live taps' distinct rows, and the
+    # one the views roofline counts: the 4-tap sample of the same cells on
+    # the 270 x 480 maps, padded, of every frame
+    own_ms = taps_bound_ms(idx, wts, P, m.feat_dim)
+    coords, _ = bev_sample_coords_with_depth(args[1][0], args[2][0], (H, W), (Fh, Fw),
+                                             ground_grid(Hb, Wb, m.bev_bounds, device=dev))
+    anchors, w4 = anchored_taps(coords.reshape(V, Hb * Wb, 2), (Fh, Fw))
+    stale_ms = B * taps_bound_ms(flat_taps(anchors, Fw + 1), w4, (Fh + 1) * (Fw + 1), m.feat_dim)
+    live = (wts != 0).sum(-1)
+    sample.update(own_bound_ms=own_ms, views_count_ms=stale_ms, live_taps_max=int(live.max()),
+                  live_taps_mean=float(live.float().mean()))
+    t = sample["ms"]  # CUDA events over 10 launches
+    log(f"[mvdet] 9-tap sample_tiles_grouped: {t:.4f} ms (profiler {sample['device_ms']}), its own bound "
+        f"{own_ms:.4f} ms (share {own_ms / t:.3f}), the views roofline's 4-tap count {stale_ms:.4f} ms "
+        f"(would read {100 * stale_ms / t:.1f} %); live taps a sample at most {int(live.max())}, mean "
+        f"{float(live.float().mean()):.3f}")
+    del maps, idx, wts, got, coords, anchors, w4, live
     store.clear()
     torch.cuda.empty_cache()
 
@@ -2962,12 +3013,16 @@ def mvdet_phase(dev):
             served(*args)
             torch.cuda.synchronize()
         kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        per_replay = {name: sum(is_kernel(k, name) for k in kernels) for name in ("sample_kernel", "bn_act")}
+        per_replay = {name: sum(is_kernel(k, name) for k in kernels)
+                      for name in ("sample_kernel", "bn_act", "upsample_bilinear2d")}
+        samplers = sorted({k for k in kernels if is_kernel(k, "sample_kernel")})
         log(f"[mvdet] one profiled replay: {len(kernels)} device operations, {json.dumps(per_replay)}, "
-            f"wrapper launches {sum(c.launches for c in counters)}")
+            f"wrapper launches {sum(c.launches for c in counters)}; the sampler {samplers}")
         check(all(c.launches == 0 for c in counters), "[mvdet] a replay went through a Python kernel wrapper")
-        check(per_replay == {"sample_kernel": 1, "bn_act": a_request["bn_act"]},
+        check(per_replay == {"sample_kernel": 1, "bn_act": a_request["bn_act"], "upsample_bilinear2d": 0},
               f"[mvdet] one replay's kernels {per_replay}")
+        check(all(re.search(r"sample_kernel<[^>]*,\s*9>", k) for k in samplers),
+              f"[mvdet] the replay's sampler is not the 9-tap instantiation: {samplers}")
         replay_ms = request_ms(served, args, n=5)
         log(f"[mvdet] replay B={B}: median {replay_ms[0]:.2f} ms, p90 {replay_ms[1]:.2f} ms "
             f"({B / replay_ms[0] * 1e3:.1f} frame sets/s); valid dets/frame "
@@ -3001,6 +3056,15 @@ def mvdet_phase(dev):
         f"{a_request['bn_act']}: kernel {request['ms']:.4f} ms, plain version {request['plain_ms']:.4f} ms, bound "
         f"{request['bound_ms']:.4f} ms (share {request['bound_ms'] / request['ms']:.3f}), max {worst} bf16 ulp")
     log("[mvdet] sample_tiles_grouped: " + json.dumps(sample))
+    four = {}
+    for label, (maps, _, idx, wts) in grouped_timing_inputs(dev).items():
+        got = gc.sample_tiles_grouped(maps, idx, wts)
+        check(torch.equal(got, gc.sample_tiles_grouped_ref(maps, idx, wts)),
+              f"[mvdet] row 4 at 4 taps, {label}: not bit-equal to its plain version")
+        four[f"{label} G={maps.shape[0]} N={idx.shape[1]} K={maps.shape[2]}"] = kernel_device_ms(
+            gc.sample_tiles_grouped, (maps, idx, wts), KERNEL_NAMES["sample_tiles_grouped"])
+        del got
+    log("[mvdet] row 4 at 4 taps, bit-equal, device ms a launch (profiler, 5 calls each): " + json.dumps(four))
     return total
 
 

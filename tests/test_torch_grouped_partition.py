@@ -10,7 +10,8 @@ the built library's.
 The model does what the blocks do. sample_tiles_grouped: a sub-warp of L
 lanes a sample, lane l the runs l, l + L, ... of V channels, S samples a
 sub-warp in a block of (256 / L) * S consecutive samples; each element
-fmaf over its 4 taps in order, weight-0 taps skipped; a lane's V channels
+fmaf over its 4 taps (or 9: an upsample folded in) in order, weight-0
+taps skipped; a lane's V channels
 stored from registers where V fills 16 bytes, else into a shared tile of
 the block's output at its run's offset modulo 16 bytes, which is then
 stored as 16-byte words, its head and tail element by element (a row too
@@ -31,7 +32,7 @@ import pytest
 import torch
 
 from vsta_tpu_torch.ops import grouped_cuda as gc
-from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps, tap_weights
+from vsta_tpu_torch.ops.warp import anchored_taps, flat_taps, folded_taps, tap_weights
 
 HF, WF = 6, 9
 P = (HF + 1) * (WF + 1)
@@ -70,11 +71,12 @@ def sample_model(maps, idx, wts, maps_addr, out_addr=BASE):
     """sample_tiles_grouped as its blocks compute and store it; returns
     the output [G, N, K] and its partition."""
     Gm, Pm, K = maps.shape
-    Nm, size = idx.shape[1], maps.element_size()
-    part = gc.sample_partition(K, size, maps_addr, out_addr)
+    (Nm, taps), size = idx.shape[1:], maps.element_size()
+    part = gc.sample_partition(K, size, maps_addr, out_addr, taps)
     V, R, E = part.vec, K // part.vec, 16 // size
     assert maps_addr % (V * size) == 0 and out_addr % (V * size) == 0 and K % V == 0
-    w = tap_weights(wts, maps.dtype)
+    assert gc.sample_smem(part.cells, K, size, part.staged, taps) <= gc.MAX_SMEM
+    w = tap_weights(wts, maps.dtype) if taps == 4 else wts
     out = torch.zeros(Gm * Nm * K, dtype=maps.dtype)
     stores = torch.zeros(Gm * Nm * K, dtype=torch.int64)
     for g in range(Gm):
@@ -84,10 +86,10 @@ def sample_model(maps, idx, wts, maps_addr, out_addr=BASE):
             run = (g * Nm + n0) * K  # the block's output: nc * K elements from here
             run_addr = out_addr + run * size
             shift = (run_addr % 16) // size  # the tile's first element in shared memory
-            # each item: V channels, fmaf over the 4 taps in order
+            # each item: V channels, fmaf over the taps in order
             ch = (r * V)[:, None] + torch.arange(V)[None, :]
             acc = torch.zeros(ch.shape)
-            for t in range(4):
+            for t in range(taps):
                 wt = w[g, n0 + c, t][:, None]
                 x = maps[g, idx[g, n0 + c, t].long()[:, None], ch].float()
                 acc = torch.where(wt != 0, torch.addcmul(acc, wt, x), acc)
@@ -176,6 +178,24 @@ def test_sample_model_is_the_plain_version(K, dtype, offset):
     offset take one channel a load."""
     tdt = getattr(torch, dtype)
     maps, _, idx, wts = _inputs(K, tdt, seed=K)
+    size = maps.element_size()
+    got, part = sample_model(maps, idx, wts, BASE + offset * size)
+    if offset:
+        assert part.vec == 1
+    assert torch.equal(got, gc.sample_tiles_grouped_ref(maps, idx, wts))
+
+
+@pytest.mark.parametrize("K,dtype,offset", [c for c in CASES if c.values[0] in (1, 13, 26, 128)])
+def test_sample_model_nine_taps_is_the_plain_version(K, dtype, offset):
+    """The same with 9 taps a sample, MVDet's upsample folded in (a 6 x 9
+    map warped as resized to 18 x 27, its float32 weights unrounded):
+    every output element stored once, bit-equal to the plain version."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(200 + K)
+    c = np.stack([rng.uniform(-1.5, 27.5, (G, N)), rng.uniform(-1.5, 18.5, (G, N))], -1).astype(np.float32)
+    c.reshape(-1, 2)[::37, 0] = np.nan
+    idx, wts = folded_taps(torch.from_numpy(c), (HF, WF), (18, 27))
+    maps = torch.from_numpy(rng.standard_normal((G, HF * WF, K)).astype(np.float32)).to(tdt)
     size = maps.element_size()
     got, part = sample_model(maps, idx, wts, BASE + offset * size)
     if offset:

@@ -18,11 +18,11 @@ from benchmark.harness.inputs import FrameSets, calibrate, make_weights, model_d
 from benchmark.reference import mvdet, resnet
 from benchmark.reference.decode import decode
 from vsta_tpu_torch.config import from_dict, load_config, to_dict
-from vsta_tpu_torch.models import bevnet
 from vsta_tpu_torch.models.bevnet import BEVNet
 from vsta_tpu_torch.models.encoders.encoder import ViewEncoder
 from vsta_tpu_torch.models.encoders.resnet import ResNetFeatures
 from vsta_tpu_torch.models.heads import MVDetHead
+from vsta_tpu_torch.ops.grouped_cuda import PLAIN, sample_bilinear_many
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIG = json.loads((ROOT / "benchmark" / "configs" / "wildtrack_mvdet.json").read_text())["config"]
@@ -127,7 +127,7 @@ def test_mvdet_head_matches_the_reference_head(setup):
 def test_bevnet_matches_the_reference_forward(setup, amp, tol):
     """The whole forward's logits against the reference's, relative to
     their largest: within 1e-5 in float32; in bfloat16 (the trunk, the
-    resize, the warp and the classifier's stem in bf16) within 6 %, the
+    folded warp and the classifier's stem in bf16) within 6 %, the
     rounding of 20 bf16 layers and a 1,538-channel sum."""
     cfg, w, args, ref = setup
     net = model_of(tiny(amp), w)
@@ -138,20 +138,27 @@ def test_bevnet_matches_the_reference_forward(setup, amp, tol):
     assert out["bev_feat"].shape == (2, 12, 36, 3 * 512)
 
 
-def test_grad_mode_and_runs_resize_alike(setup, monkeypatch):
-    """The resize in equal runs (CUDA's channels-last limit, made small
-    here) equals one F.interpolate; with a gradient wanted it raises, as
-    MVDet serves only."""
+def test_grad_mode_and_runs_resize_alike(setup):
+    """The folded warp (the resize in the warp's taps) equals F.interpolate
+    then the plain bilinear sample of the resized map, for shared and
+    per-frame coordinates; with a gradient wanted it raises, as MVDet
+    serves only."""
     cfg, w, _, _ = setup
     net = model_of(cfg, w)
-    feats = torch.randn(2, 3, 12, 20, 8).contiguous(memory_format=torch.contiguous_format)
-    want = F.interpolate(feats.reshape(6, 12, 20, 8).permute(0, 3, 1, 2), size=(36, 60), mode="bilinear",
-                         align_corners=False).permute(0, 2, 3, 1).reshape(2, 3, 36, 60, 8)
-    monkeypatch.setattr(bevnet, "RESIZE_ELEMENTS", 4 * 8 * 36 * 60 + 1)  # runs of 4 and 2 -> 3 and 3
+    g = torch.Generator().manual_seed(SEED)
+    feats = torch.randn(2, 3, 12, 20, 8, generator=g)
+    coords = torch.stack([torch.rand(3, 12, 36, generator=g) * 62 - 1, torch.rand(3, 12, 36, generator=g) * 38 - 1], -1)
+    up = F.interpolate(feats.reshape(6, 12, 20, 8).permute(0, 3, 1, 2), size=(36, 60), mode="bilinear",
+                       align_corners=False).permute(0, 2, 3, 1).contiguous()
+    want = sample_bilinear_many(up, coords[None].expand(2, -1, -1, -1, -1).reshape(6, 12 * 36, 2), grouped=PLAIN)
+    want = want.reshape(2, 3, 12, 36, 8)
     with torch.no_grad():
-        assert torch.equal(net.resize_views(feats), want)
+        shared = net.warp_resized_views(feats, coords)
+        per_frame = net.warp_resized_views(feats, coords[None].expand(2, -1, -1, -1, -1))
+    assert torch.equal(shared, per_frame)
+    assert rel_gap(shared, want) < 2e-6  # float32 sums in another order
     with pytest.raises(NotImplementedError, match="mvdet"):
-        net.resize_views(feats.requires_grad_())
+        net.warp_resized_views(feats.requires_grad_(), coords)
 
 
 def test_served_artifact_detects_as_the_reference(setup, tmp_path):

@@ -82,8 +82,9 @@ class ModelConfig:
     # 2..4: a dilated stage keeps its input's stride and dilates its 3x3s
     # instead (MVDet's ResNet-18: [false, true, true], stride 8 at C5)
     dilation: Tuple[bool, bool, bool] = (False, False, False)
-    # (H, W) the per-view maps are resized to, bilinearly, before the
-    # warp; (0, 0): warped at the trunk's own size
+    # (H, W) the per-view maps are warped at, as resized bilinearly to it
+    # (the resize folded into the warp's taps: ops/warp.folded_taps);
+    # (0, 0): warped at the trunk's own size
     feat_size: Tuple[int, int] = (0, 0)
     # 'centernet' (the GroupNorm stem and its heatmap, offset and size
     # outputs) or 'mvdet' (MVDet's map classifier over the concatenated

@@ -9,7 +9,9 @@
 // maps [G, P, K] (P padded source pixels, K channels: batch folded in),
 // idx/w [G, N, 4] bilinear taps of N samples, gout [G, N, K]. maps and gout
 // are float32 or bfloat16 (the compute dtype); sums are float32; dmaps and
-// d_wts are float32, out is the compute dtype.
+// d_wts are float32, out is the compute dtype. sample also takes 9 taps a
+// sample, idx/w [G, N, 9]: a bilinear upsample folded into the warp's
+// taps (ops/warp.folded_taps), rows of the unpadded map.
 //
 // Replaces the TPU kernels sample_tiles_grouped, scatter_tapdot_grouped
 // (vsta_tpu/ops/warp_pallas.py:1288, body _grouped_bwd_gmajor_kernel :1212),
@@ -21,7 +23,8 @@
 //
 // Rounding: with bf16 maps each tap weight is rounded to bf16 before its
 // product, as the TPU kernels cast the one-hot matrix to the compute dtype;
-// a product of two bf16 values is exact in f32.
+// a product of two bf16 values is exact in f32. sample's 9-tap weights are
+// products of two bilinear weights and multiply as the float32 they are.
 //
 // Bound: memory bytes (a few flops per element moved): for the scatters
 // gout, idx and wts read once and dmaps written once (scatter_tapdot: the
@@ -41,7 +44,20 @@
 // once and holds them in registers for all its runs, its 4 loads issued
 // before the first FMA. Each element's sum is fmaf over t = 0..3 in order,
 // taps of weight 0 (and indices outside [0, P)) skipped, as
-// sample_tiles_grouped_ref adds them: the kernel is bit-equal to it. A lane
+// sample_tiles_grouped_ref adds them: the kernel is bit-equal to it. With 9
+// taps a sample (the TAPS template parameter) the block's taps are one
+// contiguous run of cells x 9 indices and weights, loaded element by
+// element, coalesced; a thread a sample then moves its live taps to the
+// front, in order, and a lane sums them in rounds of 4 (4 loads in flight,
+// then 4 FMAs an element), stopping at the first weight 0: MVDet's 3x
+// upsample leaves at most 4 live of 9, so one round, and registers for 4
+// loads, not 9 (9 loads in flight a lane took 4.5 ms at MVDet's G = 112,
+// K = 512 on the H100, rounds of 4 3.0 ms). The partition, the sums'
+// order (live taps in order, weight 0 skipped) and the stores are the
+// 4-tap path's. Its rows (the source pixels under a cell's resized 2 x 2)
+// are shared by the block's neighbouring cells, so most come from L1 (a
+// group's map, 90 x 160 x 512 bf16 in MVDet, 14.7 MB, stays in L2 while its
+// blocks, consecutive in the grid, run). A lane
 // whose load is 16 bytes stores straight from registers (a warp's stores
 // are then contiguous); a narrower one (K = 82: 4 bytes) writes into a
 // shared tile of the block's output, which is one run of cells x K
@@ -226,6 +242,7 @@ __device__ __forceinline__ void store_run(float* p, const float* v) {
 
 // a sample's 4 taps as the sampler multiplies them: weights rounded to T's
 // precision, an index outside [0, P) (or a sample past the end) weight 0
+// (9-tap samples: sample_kernel loads them itself)
 template <typename T>
 __device__ __forceinline__ void sample_taps(const int* __restrict__ idx, const float* __restrict__ wts, long long s,
                                             bool live, bool taps16, int P, int (&id)[4], float (&w)[4]) {
@@ -268,17 +285,19 @@ __device__ __forceinline__ void flat_store(T* __restrict__ dst, const T* __restr
 }
 
 // grid (ceil(N / cells), G), cells = (kThreads / L) * S; sub-warp q of the
-// block owns samples q, q + kThreads / L, ... (S of them). Dynamic shared
-// memory: the block's taps (cells int4 + cells float4), then, if staged,
-// its output tile (cells * K elements + 16 bytes)
-template <typename T, int V>
+// block owns samples q, q + kThreads / L, ... (S of them); TAPS taps a
+// sample, 4 or 9. Dynamic shared memory: the block's taps (cells x TAPS
+// indices, then cells x TAPS weights: an int4 and a float4 a sample at 4),
+// then, if staged, its output tile (cells * K elements + 16 bytes)
+template <typename T, int V, int TAPS>
 __global__ void __launch_bounds__(kThreads)
 sample_kernel(const T* __restrict__ maps, const int* __restrict__ idx, const float* __restrict__ wts,
               T* __restrict__ out, int P, int N, int K, int L, int S, bool staged, bool taps16) {
+  static_assert(TAPS == 4 || TAPS == 9, "4 bilinear taps, or 9 with an upsample folded in");
   extern __shared__ __align__(16) unsigned char s_raw[];
   const int groups = kThreads / L, cells = groups * S;
-  int4* s_id = reinterpret_cast<int4*>(s_raw);
-  float4* s_w = reinterpret_cast<float4*>(s_raw + cells * sizeof(int4));
+  int* s_id = reinterpret_cast<int*>(s_raw);
+  float* s_w = reinterpret_cast<float*>(s_raw + cells * TAPS * sizeof(int));
   const int lane = threadIdx.x & (L - 1), q = threadIdx.x / L;
   const long long g = blockIdx.y;
   const long long n0 = static_cast<long long>(blockIdx.x) * cells;
@@ -287,40 +306,88 @@ sample_kernel(const T* __restrict__ maps, const int* __restrict__ idx, const flo
   T* run = out + (g * N + n0) * K;  // the block's output, nc * K elements
   // the tile sits at the run's offset modulo 16 bytes, so that a 16-byte
   // word of the run is one of the tile
-  T* tile = reinterpret_cast<T*>(s_raw + cells * (sizeof(int4) + sizeof(float4))) +
+  T* tile = reinterpret_cast<T*>(s_raw + cells * TAPS * (sizeof(int) + sizeof(float))) +
             (reinterpret_cast<uintptr_t>(run) & 15) / sizeof(T);
-  // the block's taps, a sample a thread: every load in flight at once
-  for (int i = threadIdx.x; i < cells; i += kThreads) {
-    int id[4];
-    float w[4];
-    sample_taps<T>(idx, wts, g * N + n0 + i, i < nc, taps16, P, id, w);
-    s_id[i] = make_int4(id[0], id[1], id[2], id[3]);
-    s_w[i] = make_float4(w[0], w[1], w[2], w[3]);
+  if constexpr (TAPS == 4) {
+    // the block's taps, a sample a thread: every load in flight at once
+    for (int i = threadIdx.x; i < cells; i += kThreads) {
+      int id[4];
+      float w[4];
+      sample_taps<T>(idx, wts, g * N + n0 + i, i < nc, taps16, P, id, w);
+      reinterpret_cast<int4*>(s_id)[i] = make_int4(id[0], id[1], id[2], id[3]);
+      reinterpret_cast<float4*>(s_w)[i] = make_float4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+    // the block's taps are one run of nc * TAPS: loaded element by element,
+    // coalesced, an index outside [0, P) weight 0; weights as they are
+    const long long t0 = (g * N + n0) * TAPS;
+    for (int i = threadIdx.x; i < nc * TAPS; i += kThreads) {
+      const int id = __ldg(idx + t0 + i);
+      const bool in = id >= 0 && id < P;
+      s_id[i] = in ? id : 0;
+      s_w[i] = in ? __ldg(wts + t0 + i) : 0.f;
+    }
+    __syncthreads();
+    // a sample's live taps to its front, in order, then weight 0: the sums
+    // below take them 4 at a time and stop at the first weight 0
+    for (int c = threadIdx.x; c < nc; c += kThreads) {
+      int n = 0;
+      for (int t = 0; t < TAPS; ++t) {
+        const float w = s_w[c * TAPS + t];
+        if (w != 0.f) {
+          s_id[c * TAPS + n] = s_id[c * TAPS + t];
+          s_w[c * TAPS + n] = w;
+          ++n;
+        }
+      }
+      for (; n < TAPS; ++n) {
+        s_id[c * TAPS + n] = 0;
+        s_w[c * TAPS + n] = 0.f;
+      }
+    }
   }
   __syncthreads();
   const int R = K / V;
   for (int j = 0; j < S; ++j) {
     const int c = q + j * groups;
     if (c >= nc) break;  // and the sub-warp's later samples
-    const int4 i4 = s_id[c];
-    const float4 w4 = s_w[c];
-    const int id[4] = {i4.x, i4.y, i4.z, i4.w};
-    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
-    for (int r = lane; r < R; r += L) {
-      Raw<T, V> raw[4];
+    int id[TAPS];
+    float w[TAPS];
+    if constexpr (TAPS == 4) {
+      const int4 i4 = reinterpret_cast<const int4*>(s_id)[c];
+      const float4 w4 = reinterpret_cast<const float4*>(s_w)[c];
+      id[0] = i4.x; id[1] = i4.y; id[2] = i4.z; id[3] = i4.w;
+      w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
+    } else {
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (w[t] != 0.f) raw[t] = load_raw<T, V>(gmap + static_cast<long long>(id[t]) * K + r * V);
+      for (int t = 0; t < TAPS; ++t) {
+        id[t] = s_id[c * TAPS + t];
+        w[t] = s_w[c * TAPS + t];
+      }
+    }
+    for (int r = lane; r < R; r += L) {
       float acc[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) acc[e] = 0.f;
+      // 4 taps' loads in flight, then their sums (9 taps: the live ones,
+      // compacted, a round of 4 at a time while any is left)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (w[t] == 0.f) continue;
-        float x[V];
-        widen<T, V>(raw[t], x);
+      for (int t0 = 0; t0 < TAPS; t0 += 4) {
+        if (TAPS > 4 && w[t0] == 0.f) break;
+        constexpr int U = 4;
+        Raw<T, V> raw[U];
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[e] = fmaf(w[t], x[e], acc[e]);
+        for (int u = 0; u < U; ++u)
+          if (t0 + u < TAPS && w[t0 + u] != 0.f)
+            raw[u] = load_raw<T, V>(gmap + static_cast<long long>(id[t0 + u]) * K + r * V);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (t0 + u >= TAPS || w[t0 + u] == 0.f) continue;
+          float x[V];
+          widen<T, V>(raw[u], x);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] = fmaf(w[t0 + u], x[e], acc[e]);
+        }
       }
       narrow_store<T, V>((staged ? tile : run) + static_cast<long long>(c) * K + r * V, acc);
     }
@@ -762,15 +829,16 @@ int sub_warp_lanes(int R, int least) {
   return L;
 }
 
-// bytes of dynamic shared memory sample_kernel takes
+// bytes of dynamic shared memory sample_kernel takes with `taps` taps a
+// sample
 template <typename T>
-long long sample_smem(const Partition& p, int K) {
-  return static_cast<long long>(p.cells) * (sizeof(int4) + sizeof(float4)) +
+long long sample_smem(const Partition& p, int K, int taps) {
+  return static_cast<long long>(p.cells) * taps * (sizeof(int) + sizeof(float)) +
          (p.staged ? static_cast<long long>(p.cells) * K * sizeof(T) + 16 : 0);
 }
 
 template <typename T>
-Partition sample_partition(int K, const void* maps, const void* out) {
+Partition sample_partition(int K, const void* maps, const void* out, int taps) {
   const void* ptrs[] = {maps, out};
   Partition p;
   p.V = vector_width<T>(K, ptrs, 2, 1);
@@ -780,10 +848,10 @@ Partition sample_partition(int K, const void* maps, const void* out) {
   p.staged = p.V * static_cast<int>(sizeof(T)) < 16;
   p.S = 1;
   p.cells = groups;
-  if (sample_smem<T>(p, K) > kMaxSmem) p.staged = 0;  // a row too long to stage
+  if (sample_smem<T>(p, K, taps) > kMaxSmem) p.staged = 0;  // a row too long to stage
   p.S = kSamplesPerLane;
   p.cells = groups * p.S;
-  while (p.S > 1 && sample_smem<T>(p, K) > kMaxSmem) {
+  while (p.S > 1 && sample_smem<T>(p, K, taps) > kMaxSmem) {
     p.S /= 2;
     p.cells = groups * p.S;
   }
@@ -804,24 +872,28 @@ Partition taps_dot_partition(int K, const void* maps, const void* gout) {
 
 template <typename T, int V>
 void launch_sample_v(const Partition& p, const T* maps, const int* idx, const float* wts, T* out,
-                     int G, int P, int N, int K, cudaStream_t stream) {
+                     int G, int P, int N, int K, int taps, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((static_cast<long long>(N) + p.cells - 1) / p.cells), static_cast<unsigned>(G));
-  const size_t smem = static_cast<size_t>(sample_smem<T>(p, K));
+  const size_t smem = static_cast<size_t>(sample_smem<T>(p, K, taps));
   const bool taps16 = reinterpret_cast<uintptr_t>(idx) % 16 == 0 && reinterpret_cast<uintptr_t>(wts) % 16 == 0;
-  sample_kernel<T, V><<<grid, kThreads, smem, stream>>>(maps, idx, wts, out, P, N, K, p.L, p.S, p.staged != 0,
-                                                        taps16);
+  if (taps == 9)
+    sample_kernel<T, V, 9><<<grid, kThreads, smem, stream>>>(maps, idx, wts, out, P, N, K, p.L, p.S,
+                                                             p.staged != 0, taps16);
+  else
+    sample_kernel<T, V, 4><<<grid, kThreads, smem, stream>>>(maps, idx, wts, out, P, N, K, p.L, p.S,
+                                                             p.staged != 0, taps16);
 }
 
 template <typename T>
 int launch_sample(const void* maps, const int* idx, const float* wts, void* out,
-                  int G, int P, int N, int K, cudaStream_t stream) {
-  const Partition p = sample_partition<T>(K, maps, out);
+                  int G, int P, int N, int K, int taps, cudaStream_t stream) {
+  const Partition p = sample_partition<T>(K, maps, out, taps);
   const T* m = static_cast<const T*>(maps);
   T* o = static_cast<T*>(out);
-  if (p.V == 4) launch_sample_v<T, 4>(p, m, idx, wts, o, G, P, N, K, stream);
-  else if (p.V == 2) launch_sample_v<T, 2>(p, m, idx, wts, o, G, P, N, K, stream);
-  else if (p.V == 1) launch_sample_v<T, 1>(p, m, idx, wts, o, G, P, N, K, stream);
-  else if constexpr (sizeof(T) == 2) launch_sample_v<T, 8>(p, m, idx, wts, o, G, P, N, K, stream);  // bf16 only
+  if (p.V == 4) launch_sample_v<T, 4>(p, m, idx, wts, o, G, P, N, K, taps, stream);
+  else if (p.V == 2) launch_sample_v<T, 2>(p, m, idx, wts, o, G, P, N, K, taps, stream);
+  else if (p.V == 1) launch_sample_v<T, 1>(p, m, idx, wts, o, G, P, N, K, taps, stream);
+  else if constexpr (sizeof(T) == 2) launch_sample_v<T, 8>(p, m, idx, wts, o, G, P, N, K, taps, stream);  // bf16 only
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -933,15 +1005,16 @@ extern "C" {
 // dtype codes: 0 = float32, 1 = bfloat16. Each launches on `stream`, which
 // belongs to the caller's current device, and returns 0, a cudaError_t
 // from the launch, or -1 for arguments the kernel does not take.
+// sample: idx/wts [G, N, taps], taps 4 or 9
 int grouped_sample_launch(const void* maps, const void* idx, const void* wts, void* out,
-                          int G, int P, int N, int K, int dtype, void* stream) {
-  if (G < 0 || G > 65535 || P < 1 || N < 0 || K < 1) return -1;
+                          int G, int P, int N, int K, int taps, int dtype, void* stream) {
+  if (G < 0 || G > 65535 || P < 1 || N < 0 || K < 1 || (taps != 4 && taps != 9)) return -1;
   if (G == 0 || N == 0) return 0;
   const int* i = static_cast<const int*>(idx);
   const float* w = static_cast<const float*>(wts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_sample<__nv_bfloat16>(maps, i, w, out, G, P, N, K, s);
-  if (dtype == 0) return launch_sample<float>(maps, i, w, out, G, P, N, K, s);
+  if (dtype == 1) return launch_sample<__nv_bfloat16>(maps, i, w, out, G, P, N, K, taps, s);
+  if (dtype == 0) return launch_sample<float>(maps, i, w, out, G, P, N, K, taps, s);
   return -1;
 }
 
@@ -1033,13 +1106,14 @@ int grouped_taps_dot_launch(const void* maps, const void* gout, const void* idx,
   return -1;
 }
 
-// the work partition sample_tiles_grouped (kernel 0: a = maps, b = out)
-// or taps_dot_grouped (kernel 1: a = maps, b = gout) takes for these K,
-// dtype and pointers: shape[0..4] = V, L, S, cells, staged
-int grouped_partition(int kernel, int K, int dtype, const void* a, const void* b, int* shape) {
-  if (K < 1 || (dtype != 0 && dtype != 1) || (kernel != 0 && kernel != 1)) return -1;
+// the work partition sample_tiles_grouped (kernel 0: a = maps, b = out,
+// `taps` taps a sample) or taps_dot_grouped (kernel 1: a = maps, b = gout)
+// takes for these K, dtype and pointers: shape[0..4] = V, L, S, cells, staged
+int grouped_partition(int kernel, int K, int taps, int dtype, const void* a, const void* b, int* shape) {
+  if (K < 1 || (dtype != 0 && dtype != 1) || (kernel != 0 && kernel != 1) || (taps != 4 && taps != 9)) return -1;
   Partition p;
-  if (kernel == 0) p = dtype == 1 ? sample_partition<__nv_bfloat16>(K, a, b) : sample_partition<float>(K, a, b);
+  if (kernel == 0)
+    p = dtype == 1 ? sample_partition<__nv_bfloat16>(K, a, b, taps) : sample_partition<float>(K, a, b, taps);
   else p = dtype == 1 ? taps_dot_partition<__nv_bfloat16>(K, a, b) : taps_dot_partition<float>(K, a, b);
   shape[0] = p.V;
   shape[1] = p.L;

@@ -33,10 +33,12 @@ per-frame cameras (every frame warps under its own ``K``, ``Rt``):
   followed by the 1x1 ``bev_proj``.
 * MVDet (``HEAD: mvdet``, Hou et al., arXiv:2007.07247): the encoder
   without its projection (a ResNet whose last stages may be dilated), every
-  view's map resized bilinearly to ``FEAT_SIZE`` (``F.interpolate``,
-  half-pixel, as MVDet's upsample), warped by
-  :func:`~vsta_tpu_torch.ops.grouped_cuda.warp_views`, the views' BEV maps
-  concatenated in camera order, then
+  view's map warped as resized bilinearly to ``FEAT_SIZE``
+  (``F.interpolate``, half-pixel, as MVDet's upsample), the resize folded
+  into the warp's taps (:func:`~vsta_tpu_torch.ops.warp.folded_taps`: 9 a
+  cell, on the encoder's own map) and sampled by
+  :func:`~vsta_tpu_torch.ops.grouped_cuda.sample_tiles_grouped`, the
+  views' BEV maps concatenated in camera order, then
   :class:`~vsta_tpu_torch.models.heads.MVDetHead` (which adds its own
   coordinate channels) in place of the positional encoding and the
   CenterNet head. ``FUSION`` is concat and ``WARP_IMPL`` gather there. It
@@ -45,8 +47,8 @@ per-frame cameras (every frame warps under its own ``K``, ``Rt``):
 Inputs and outputs are channels-last, as in the JAX package. The
 forward marks its stages on the device (:func:`~vsta_tpu_torch.utils.tracing.mark`):
 ``encoder`` (the normalization and the encoder), ``fusion`` (the
-resize, the geometry, the warp or fusion and the positional channels or
-the views' concatenation), ``head``.
+geometry, the warp or fusion and the positional channels or the views'
+concatenation), ``head``.
 ``TRAIN.FREEZE_BACKBONE`` keeps the backbone in eval mode and cuts the
 gradient at the encoder's output.
 
@@ -79,6 +81,7 @@ from ..geometry import bev_sample_coords_with_depth, ground_grid
 from ..ops.grouped_cuda import KERNELS, warp_views
 from ..ops.quant import apply_quant_head
 from ..ops.resize import resize_bilinear
+from ..ops.warp import folded_taps
 from ..ops.warp_cuda import fused_warp_proj, warp_proj, warp_tiles
 from ..ops.warp_views_cuda import warp_views_sum
 from ..parallel.collectives import gather
@@ -91,7 +94,6 @@ from .fusion import AttentionFusion, DeformableFusion, Dense, simple_fusion
 from .heads import BEVDetectorHead, MVDetHead
 
 POS_CH = 2
-RESIZE_ELEMENTS = 2**31 - 1  # CUDA's channels-last bilinear resize writes fewer elements a call
 FUSIONS = ("concat", "deform_attn", "sum", "mean", "max", "attn")
 WARP_IMPLS = ("pallas", "fused", "gather")
 
@@ -161,7 +163,7 @@ class BEVNet(nn.Module):
         self.fusion, self.attn_stride = fusion, max(1, attn_stride)
         self.warp_impl, self.static_cameras = warp_impl, static_cameras
         self.head = head
-        # the size MVDet's maps are resized to before the warp (None: none)
+        # the size MVDet's maps are warped at, as resized (None: as they are)
         self.feat_size = tuple(feat_size) if any(feat_size) else None
         # concat under the fused warps folds the encoder's projection into
         # the view projection; every other fusion works on the projected maps
@@ -298,17 +300,15 @@ class BEVNet(nn.Module):
         if self.freeze_backbone:
             feats = feats.detach()
         tracing.mark("fusion", feats)
-        if self.feat_size is not None:
-            feats = self.resize_views(feats)
-        _, _, Hf, Wf, _ = feats.shape
+        hw = self.feat_size or feats.shape[2:4]  # the map the coordinates address
         grid = ground_grid(Hb, Wb, self.bev_bounds, device=dev)
         if self.static_cameras:  # [V, Hb, Wb, ...]: one calibration for the batch
             K0, Rt0 = K[0], Rt[0]
             if self.sharded:  # the global frame 0's, from the first data rank
                 K0, Rt0 = gather(K[:1], self.mesh, "data", 0)[0], gather(Rt[:1], self.mesh, "data", 0)[0]
-            coords, depth_w = bev_sample_coords_with_depth(K0, Rt0, (H, W), (Hf, Wf), grid)
+            coords, depth_w = bev_sample_coords_with_depth(K0, Rt0, (H, W), hw, grid)
         else:  # [B, V, Hb, Wb, ...]
-            coords, depth_w = bev_sample_coords_with_depth(K, Rt, (H, W), (Hf, Wf), grid)
+            coords, depth_w = bev_sample_coords_with_depth(K, Rt, (H, W), hw, grid)
         if self.head == "mvdet":
             return self._mvdet(feats, coords, return_per_view)
         pos = positional_encoding(Hb, Wb, self.bev_bounds, device=dev)
@@ -333,34 +333,9 @@ class BEVNet(nn.Module):
             out["bev_per_view"] = per_view
         return out
 
-    def resize_views(self, feats: torch.Tensor) -> torch.Tensor:
-        """feats [B, V, Hf, Wf, C] -> [B, V, *FEAT_SIZE, C]: MVDet's
-        upsample, ``F.interpolate``'s bilinear with half-pixel centres, in
-        the maps' dtype and channels-last memory. CUDA's channels-last
-        kernel takes an output of fewer than :data:`RESIZE_ELEMENTS`, so the images
-        are resized in as few equal runs as keep under that, each written
-        in place into its slice of the one output. An ``out=`` call records
-        no gradient, and MVDet serves only: a gradient wanted here raises
-        ``NotImplementedError``, as training it does."""
-        if torch.is_grad_enabled() and feats.requires_grad:
-            raise NotImplementedError(
-                "MODEL.HEAD mvdet serves only (under torch.no_grad): its resize records no gradient"
-            )
-        B, V, Hf, Wf, C = feats.shape
-        H, W = self.feat_size
-        x = feats.reshape(B * V, Hf, Wf, C).permute(0, 3, 1, 2)
-        most = max(1, (RESIZE_ELEMENTS - 1) // (C * H * W))  # images a run may hold
-        step = -(-(B * V) // -(-(B * V) // most))  # equal runs, as few as hold them
-        y = torch.empty((B * V, H, W, C), dtype=x.dtype, device=x.device)
-        for a in range(0, B * V, step):
-            torch.ops.aten.upsample_bilinear2d.out(
-                x[a:a + step], [H, W], False, None, None, out=y[a:a + step].permute(0, 3, 1, 2)
-            )
-        return y.reshape(B, V, H, W, C)
-
     def _mvdet(self, feats, coords, return_per_view: bool) -> Dict[str, torch.Tensor]:
         """The views' warps side by side, then MVDet's classifier."""
-        per_view = self.per_view(feats, coords)
+        per_view = self.warp_resized_views(feats, coords)
         B, V, Hb, Wb, C = per_view.shape
         bev_feat = per_view.permute(0, 2, 3, 1, 4).reshape(B, Hb, Wb, V * C)
         tracing.mark("head", bev_feat)
@@ -369,6 +344,33 @@ class BEVNet(nn.Module):
         if return_per_view:
             out["bev_per_view"] = per_view
         return out
+
+    def warp_resized_views(self, feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """feats [B, V, Hf, Wf, C], coords [V, Hb, Wb, 2] or
+        [B, V, Hb, Wb, 2] on the ``FEAT_SIZE`` map -> every view's BEV map
+        [B, V, Hb, Wb, C] of its map resized to ``FEAT_SIZE`` (MVDet's
+        upsample), with the resize folded into the warp's taps
+        (:func:`~vsta_tpu_torch.ops.warp.folded_taps`): one launch of the
+        grouped sampler on the encoder's own maps, one group a (frame,
+        view), no resized map made. The taps are built here from the
+        request's calibration. It records no gradient, and MVDet serves
+        only: a gradient wanted here raises ``NotImplementedError``, as
+        training it does."""
+        if torch.is_grad_enabled() and feats.requires_grad:
+            raise NotImplementedError(
+                "MODEL.HEAD mvdet serves only (under torch.no_grad): its folded warp records no gradient"
+            )
+        B, V, Hf, Wf, C = feats.shape
+        Hb, Wb = coords.shape[-3:-1]
+        idx, wts = folded_taps(coords, (Hf, Wf), self.feat_size)
+        T = idx.shape[-1]
+        # shared coordinates: the same taps for every frame's views (a
+        # contiguous copy; per-frame ones are already [B, V, ...])
+        idx, wts = (t.reshape(-1, V, Hb * Wb, T).expand(B, V, Hb * Wb, T).reshape(B * V, Hb * Wb, T)
+                    for t in (idx, wts))
+        maps = feats.reshape(B * V, Hf * Wf, C).contiguous()
+        out = self.grouped.sample(maps, idx, wts)
+        return out.reshape(B, V, Hb, Wb, C)
 
     def _deform(self, feats, coords, depth_w, pos) -> torch.Tensor:
         """The warped-sum query plus the deformable fusion's residual."""

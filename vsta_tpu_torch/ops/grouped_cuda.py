@@ -1,7 +1,10 @@
 """The grouped bilinear sampler (``csrc/grouped_taps.cu``) and its gradients.
 
 Four kernels. :func:`sample_tiles_grouped` computes
-``out[g, n, k] = sum_t wts[g,n,t] * maps[g, idx[g,n,t], k]``. Its gradients:
+``out[g, n, k] = sum_t wts[g,n,t] * maps[g, idx[g,n,t], k]`` over 4 taps
+a sample (the bilinear sample) or 9 (a bilinear upsample folded into it,
+:func:`~vsta_tpu_torch.ops.warp.folded_taps`). Its gradients, of the
+4-tap sample:
 
 * ``dmaps[g, p, k] = sum_{n,t: idx[g,n,t] = p} wts[g,n,t] * gout[g,n,k]``;
 * ``d_wts[g, n, t] = <maps[g, idx[g,n,t]], gout[g,n]>``, for every tap,
@@ -16,9 +19,10 @@ reduction with no float atomics. They replace the TPU kernels
 ``scatter_taps_windowed`` and ``taps_dot_grouped``
 (``vsta_tpu/ops/warp_pallas.py``); the ``*_ref``
 functions are their plain PyTorch versions. A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. In bf16 every tap
-weight is rounded to bf16 before its product, as the TPU kernels cast
-their one-hot weight matrix to the compute dtype; sums are float32.
+version; a CUDA tensor launches the kernel or raises. In bf16 every weight
+of a 4-tap sample is rounded to bf16 before its product, as the TPU
+kernels cast their one-hot weight matrix to the compute dtype; 9-tap
+weights multiply as the float32 they are; sums are float32.
 
 :class:`GroupedSample` is the sampler as an autograd Function, the twin of
 the custom VJP of ``_warp_pairs_shared`` (``vsta_tpu/ops/warp.py``). Its
@@ -47,11 +51,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def sample_tiles_grouped_ref(maps: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`sample_tiles_grouped`."""
     G, P, K = maps.shape
-    w = tap_weights(wts, maps.dtype)
+    taps = idx.shape[-1]
+    w = tap_weights(wts, maps.dtype) if taps == 4 else wts
     base = torch.arange(G, device=maps.device, dtype=torch.int64)[:, None] * P
     flat = maps.reshape(G * P, K)
     out = torch.zeros(idx.shape[:2] + (K,), dtype=torch.float32, device=maps.device)
-    for t in range(4):
+    for t in range(taps):
         rows = flat.index_select(0, (base + idx[..., t].long()).reshape(-1))
         out.addcmul_(w[..., t, None], rows.reshape(out.shape).to(torch.float32))
     return out.to(maps.dtype)
@@ -93,13 +98,13 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("grouped_taps")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-        ("grouped_sample_launch", [ptr] * 4 + [i32] * 5 + [ptr]),
+        ("grouped_sample_launch", [ptr] * 4 + [i32] * 6 + [ptr]),
         ("grouped_tap_lut_workspace", [i32] * 3 + [ctypes.POINTER(ctypes.c_size_t)]),
         ("grouped_tap_lut_launch", [ptr] * 5 + [ctypes.c_size_t] + [i32] * 3 + [ptr]),
         ("grouped_scatter_tapdot_launch", [ptr] * 9 + [i32] * 6 + [ptr]),
         ("grouped_scatter_taps_launch", [ptr] * 6 + [i32] * 6 + [ptr]),
         ("grouped_taps_dot_launch", [ptr] * 4 + [i32] * 5 + [ptr]),
-        ("grouped_partition", [i32] * 3 + [ptr] * 3),
+        ("grouped_partition", [i32] * 4 + [ptr] * 3),
     ):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i32
@@ -108,16 +113,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, maps_shape, dtype, idx, wts, *tensors):
+def _check(name, maps_shape, dtype, idx, wts, *tensors, taps=(4,)):
     """Validate one call's shapes and dtypes (``maps_shape`` is [G, P, K];
     ``wts`` is None for a kernel that reads no weights; ``tensors`` are its
-    float inputs, maps and/or gout). False for CPU tensors, which take the
-    plain version; True for tensors on one CUDA device, contiguous; raises
-    otherwise."""
+    float inputs, maps and/or gout; ``taps``: the taps a sample it takes).
+    False for CPU tensors, which take the plain version; True for tensors
+    on one CUDA device, contiguous; raises otherwise."""
     wts_shape = idx.shape if wts is None else wts.shape
-    if len(maps_shape) != 3 or idx.ndim != 3 or idx.shape[-1] != 4 or idx.shape != wts_shape:
+    if len(maps_shape) != 3 or idx.ndim != 3 or idx.shape[-1] not in taps or idx.shape != wts_shape:
         raise ValueError(
-            f"{name} wants maps [G, P, K] and idx/wts [G, N, 4], got "
+            f"{name} wants maps [G, P, K] and idx/wts [G, N, T], T in {taps}, got "
             f"{tuple(maps_shape)}, {tuple(idx.shape)}, {tuple(wts_shape)}"
         )
     G, P, K = maps_shape
@@ -129,7 +134,7 @@ def _check(name, maps_shape, dtype, idx, wts, *tensors):
         raise TypeError(
             f"{name} wants int32 idx and float32 wts, got {idx.dtype}, {None if wts is None else wts.dtype}"
         )
-    if max(G * P, G * idx.shape[1] * 4, K) >= 2**31:
+    if max(G * P, G * idx.shape[1] * idx.shape[2], K) >= 2**31:
         raise ValueError(f"{name} shape too large: G={G} P={P} N={idx.shape[1]} K={K}")
     tensors = tensors + ((idx,) if wts is None else (idx, wts))
     dev = tensors[0].device
@@ -156,30 +161,36 @@ def _raise_on(lib, rc: int, name: str) -> None:
 
 
 def sample_tiles_grouped(maps: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
-    """Per-group bilinear sampling.
+    """Per-group sampling over T taps a sample.
 
-    maps [G, P, K] float32/bfloat16; idx [G, N, 4] int32 flat taps in
-    [0, P); wts [G, N, 4] float32. Returns [G, N, K] in the dtype of
-    ``maps``, accumulated in float32. ``sample_tiles_grouped.launches``
-    counts kernel launches.
+    maps [G, P, K] float32/bfloat16; idx [G, N, T] int32 flat taps in
+    [0, P); wts [G, N, T] float32; T = ``idx.shape[-1]``, 4 (bilinear
+    taps, each weight rounded to the maps' dtype) or 9 (an upsample folded
+    in, :func:`~vsta_tpu_torch.ops.warp.folded_taps`: float32 weights).
+    Returns [G, N, K] in the dtype of ``maps``, accumulated in float32.
+    ``sample_tiles_grouped.launches`` counts kernel launches, and
+    ``sample_tiles_grouped.launches_by_taps`` them by T.
     """
-    if not _check("sample_tiles_grouped", maps.shape, maps.dtype, idx, wts, maps):
+    if not _check("sample_tiles_grouped", maps.shape, maps.dtype, idx, wts, maps, taps=SAMPLE_TAPS):
         return sample_tiles_grouped_ref(maps, idx, wts)
     G, P, K = maps.shape
-    N = idx.shape[1]
+    N, taps = idx.shape[1:]
     out = torch.empty((G, N, K), dtype=maps.dtype, device=maps.device)
     lib = _library()
     with torch.cuda.device(maps.device):
         rc = lib.grouped_sample_launch(
             maps.data_ptr(), idx.data_ptr(), wts.data_ptr(), out.data_ptr(),
-            G, P, N, K, _DTYPE_CODE[maps.dtype], torch.cuda.current_stream(maps.device).cuda_stream,
+            G, P, N, K, taps, _DTYPE_CODE[maps.dtype], torch.cuda.current_stream(maps.device).cuda_stream,
         )
     _raise_on(lib, rc, "sample_tiles_grouped")
     sample_tiles_grouped.launches += 1
+    sample_tiles_grouped.launches_by_taps[taps] += 1
     return out
 
 
+SAMPLE_TAPS = (4, 9)  # taps a sample sample_tiles_grouped takes
 sample_tiles_grouped.launches = 0
+sample_tiles_grouped.launches_by_taps = dict.fromkeys(SAMPLE_TAPS, 0)
 
 
 # sorted taps a warp of the two scatter kernels: both must use the same for
@@ -398,23 +409,24 @@ def sub_warp_lanes(runs: int, least: int) -> int:
     return L
 
 
-def sample_smem(cells: int, K: int, itemsize: int, staged: bool) -> int:
+def sample_smem(cells: int, K: int, itemsize: int, staged: bool, taps: int = 4) -> int:
     """Bytes of shared memory a block of sample_tiles_grouped takes: its
-    taps (an int4 and a float4 a sample) and, if staged, its output tile."""
-    return cells * 32 + (cells * K * itemsize + 16 if staged else 0)
+    taps (an int32 index and a float32 weight a tap) and, if staged, its
+    output tile."""
+    return cells * taps * 8 + (cells * K * itemsize + 16 if staged else 0)
 
 
-def sample_partition(K: int, itemsize: int, maps_addr: int, out_addr: int) -> Partition:
+def sample_partition(K: int, itemsize: int, maps_addr: int, out_addr: int, taps: int = 4) -> Partition:
     """sample_tiles_grouped's partition for K channels of ``itemsize``
-    bytes, maps and out at these addresses: the output staged where a
-    load is narrower than 16 bytes and a block of one sample a sub-warp
-    fits in shared memory."""
+    bytes, maps and out at these addresses, ``taps`` taps a sample: the
+    output staged where a load is narrower than 16 bytes and a block of
+    one sample a sub-warp fits in shared memory."""
     V = vector_width(K, itemsize, (maps_addr, out_addr))
     L = sub_warp_lanes(K // V, 1)
     groups = THREADS // L
-    staged = V * itemsize < 16 and sample_smem(groups, K, itemsize, True) <= MAX_SMEM
+    staged = V * itemsize < 16 and sample_smem(groups, K, itemsize, True, taps) <= MAX_SMEM
     S = SAMPLES_PER_LANE
-    while S > 1 and sample_smem(groups * S, K, itemsize, staged) > MAX_SMEM:
+    while S > 1 and sample_smem(groups * S, K, itemsize, staged, taps) > MAX_SMEM:
         S //= 2
     return Partition(V, L, S, groups * S, staged)
 
@@ -426,14 +438,18 @@ def taps_dot_partition(K: int, itemsize: int, maps_addr: int, gout_addr: int) ->
     return Partition(V, L, SAMPLES_PER_LANE, THREADS // L * SAMPLES_PER_LANE, False)
 
 
-def library_partition(kernel: str, K: int, dtype: torch.dtype, a: torch.Tensor, b: torch.Tensor) -> Partition:
+def library_partition(
+    kernel: str, K: int, dtype: torch.dtype, a: torch.Tensor, b: torch.Tensor, taps: int = 4
+) -> Partition:
     """The partition the built library takes for ``kernel``
-    ("sample_tiles_grouped": a = maps, b = out; "taps_dot_grouped": a =
-    maps, b = gout), as it reports it (builds the library)."""
+    ("sample_tiles_grouped": a = maps, b = out, ``taps`` taps a sample;
+    "taps_dot_grouped": a = maps, b = gout), as it reports it (builds the
+    library)."""
     lib = _library()
     shape = (ctypes.c_int * 5)()
     code = {"sample_tiles_grouped": 0, "taps_dot_grouped": 1}[kernel]
-    _raise_on(lib, lib.grouped_partition(code, K, _DTYPE_CODE[dtype], a.data_ptr(), b.data_ptr(), shape), kernel)
+    rc = lib.grouped_partition(code, K, taps, _DTYPE_CODE[dtype], a.data_ptr(), b.data_ptr(), shape)
+    _raise_on(lib, rc, kernel)
     return Partition(shape[0], shape[1], shape[2], shape[3], bool(shape[4]))
 
 

@@ -150,3 +150,76 @@ def gather_taps(maps: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     base = torch.arange(G, device=maps.device, dtype=torch.int64)[:, None, None] * P
     rows = (base + idx.long()).reshape(-1)
     return maps.reshape(G * P, K).index_select(0, rows).reshape(idx.shape + (K,))
+
+
+# -- an upsample folded into the warp's taps ------------------------------
+#
+# MVDet resizes every view's map bilinearly (F.interpolate, half-pixel
+# centres, align_corners False) and then warps the resized map. Both are
+# fixed, separable linear maps, so their product is one: along an axis
+# the warp's 2 taps land on resized pixels whose 2 source pixels each lie
+# in a window of 3 source pixels where the axis is upsampled. A BEV cell is
+# then a sum over at most 3 x 3 pixels of the map before the resize.
+
+FOLD_AXIS_TAPS = 3  # source pixels an axis where it is upsampled
+
+
+def _folded_axis(s: torch.Tensor, n_src: int, n_dst: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One axis of :func:`folded_taps`: s (...) float32 coordinates on the
+    resized axis of ``n_dst`` pixels -> (first source pixel (...) int64,
+    weights (..., 3) float32 of it and the next two)."""
+    zero = torch.zeros((), dtype=torch.float32, device=s.device)
+    scale = torch.tensor(float(n_src)) / n_dst  # in float32, as F.interpolate computes it
+    a = torch.floor(s).clamp(0, n_dst - 1)
+    w = [torch.zeros_like(s) for _ in range(FOLD_AXIS_TAPS)]
+    for d in (0, 1):  # the warp's resized pixels a and a + 1
+        j = a + d
+        hat = torch.where(j < n_dst, torch.maximum(zero, 1.0 - torch.abs(j - s)), zero)  # none past the edge
+        # F.interpolate's half-pixel source index, clamped at 0; the far edge repeats its pixel
+        f = (scale * (j.clamp(max=n_dst - 1) + 0.5) - 0.5).clamp(min=0.0)
+        i0 = torch.floor(f)
+        i1 = torch.where(i0 < n_src - 1, i0 + 1, i0)
+        if d == 0:
+            base = i0
+        for i, lam in ((i0, 1.0 - (f - i0)), (i1, f - i0)):
+            for k in range(FOLD_AXIS_TAPS):
+                w[k] = w[k] + torch.where(i - base == k, hat * lam, zero)
+    return base.long(), torch.stack(w, dim=-1)
+
+
+def folded_taps(
+    coords: torch.Tensor, feat_hw: Tuple[int, int], size_hw: Tuple[int, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bilinear warp of a map resized from ``feat_hw`` to ``size_hw``
+    (``F.interpolate``, bilinear, ``align_corners`` False), as taps into
+    the map before the resize.
+
+    coords: (..., 2) float (x, y) pixel coordinates on the resized map, as
+    :func:`~vsta_tpu_torch.geometry.bev_sample_coords_with_depth` gives
+    them for ``size_hw``. Returns idx (..., T) int32 flat rows of the
+    unpadded ``Hf * Wf`` map and wts (..., T) float32, T = 9 (the 3 x 3
+    source pixels from the cell's first, row-major). The weights are the
+    warp's bilinear hats times the resize's half-pixel weights (clamped at
+    0 and at the far edge), summed by source pixel; a warp tap outside the
+    resized map weighs 0 (grid_sample's zeros), as does every tap of a
+    non-finite coordinate. T is 9 wherever each axis keeps or grows its
+    size; a shape that shrinks an axis (up to 4 source pixels an axis)
+    raises ``ValueError``. Equal, in real arithmetic, to resizing and then
+    sampling; in float32 within a few ulp of it.
+    """
+    Hf, Wf = feat_hw
+    H, W = size_hw
+    if H < Hf or W < Wf:
+        raise ValueError(f"folded_taps folds an upsample: {feat_hw} -> {size_hw} shrinks an axis")
+    x, y = coords[..., 0], coords[..., 1]
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    far = torch.full((), -10.0, dtype=torch.float32, device=coords.device)  # every hat 0
+    bx, wx = _folded_axis(torch.where(finite, x.float(), far), Wf, W)
+    by, wy = _folded_axis(torch.where(finite, y.float(), far), Hf, H)
+    k = torch.arange(FOLD_AXIS_TAPS, device=coords.device)
+    rows = (by[..., None] + k).clamp(max=Hf - 1)  # past the edge only where the weight is 0
+    cols = (bx[..., None] + k).clamp(max=Wf - 1)
+    idx = rows[..., :, None] * Wf + cols[..., None, :]
+    wts = wy[..., :, None] * wx[..., None, :]
+    lead = coords.shape[:-1]
+    return idx.reshape(*lead, -1).to(torch.int32), wts.reshape(*lead, -1)
