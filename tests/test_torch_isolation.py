@@ -57,6 +57,18 @@ def test_port_imports_with_jax_blocked():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+def test_lower_layers_import_no_model_or_serving():
+    """The data pipeline, the mesh and the device rule import neither the
+    model stack nor the serving layer."""
+    code = (
+        "import sys\n"
+        "import vsta_tpu_torch.data.pipeline, vsta_tpu_torch.parallel.mesh, vsta_tpu_torch.utils.platform\n"
+        "print(sorted(m for m in sys.modules if m.startswith(('vsta_tpu_torch.models', 'vsta_tpu_torch.serving'))))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "[]", res.stdout + res.stderr
+
+
 def test_cuda_entry_point_raises_without_a_card(monkeypatch):
     from vsta_tpu_torch import config
     from vsta_tpu_torch.serving import build_serving_fn

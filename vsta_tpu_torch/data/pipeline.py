@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from ..serving import resolve_device
+from ..utils.platform import resolve_device
 from .wildtrack import collate
 
 Batch = Dict[str, Any]

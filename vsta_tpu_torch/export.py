@@ -48,8 +48,9 @@ from .models.bevnet import BEVNet
 from .models.encoders.resnet import RESNET_SPECS
 from .ops.quant import quantize_head, tree_to
 from .ops.quant_resnet import quantize_encoder
-from .serving import build_serving_fn, resolve_device
+from .serving import build_serving_fn
 from .utils import tracing
+from .utils.platform import resolve_device
 
 __all__ = [
     "build_serving_fn", "calibrate", "calibrate_quant_head", "calibrate_quant_encoder", "export_serving",

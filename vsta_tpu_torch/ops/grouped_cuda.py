@@ -196,7 +196,7 @@ sample_tiles_grouped.launches_by_taps = dict.fromkeys(SAMPLE_TAPS, 0)
 # sorted taps a warp of the two scatter kernels: both must use the same for
 # their dmaps to agree bit for bit (a chunk's partial sums are its order of
 # addition). 128 was the fastest or within 10 % of it from 64 to 1,024 at
-# the main shapes on the H100 (chip_smoke.py's chunk sweep)
+# the main shapes on the H100 (a sweep of the chunk size over rows 3 and 6)
 CHUNK_TAPS = 128
 
 

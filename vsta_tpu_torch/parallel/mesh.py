@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.platform import resolve_device
+
 AXES = ("data", "view")
 
 
@@ -64,8 +66,6 @@ def init_distributed(device: str | torch.device = "cuda", backend: Optional[str]
     the caller names one (two gloo ranks can share one card, which NCCL
     refuses). Joining twice is a no-op.
     """
-    from ..serving import resolve_device  # serving builds the model, which imports this module
-
     dev = resolve_device(device)
     if "RANK" not in os.environ and not dist.is_initialized():
         return dev

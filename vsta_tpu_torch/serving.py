@@ -18,19 +18,7 @@ from .models.bevnet import BEVNet
 from .ops.decode import decode_detections
 from .ops.quant import tree_to
 from .utils import tracing
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but no CUDA device is available; "
-            "pass device='cpu' to run the plain PyTorch versions on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+from .utils.platform import resolve_device
 
 
 def build_serving_fn(

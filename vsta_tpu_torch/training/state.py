@@ -46,8 +46,8 @@ from ..ops.decode import decode_detections
 from ..ops.losses import detection_loss
 from ..ops.splat import build_targets
 from ..parallel.collectives import gather, sum_no_grad
-from ..serving import resolve_device
 from ..utils import tracing
+from ..utils.platform import resolve_device
 from .optim import OptState, Optimizer, build_optimizer
 
 Batch = Mapping[str, object]

@@ -3,7 +3,7 @@
 
 ``cpu`` means the CPU. Every other value means the CUDA device: the
 shipped configs say ``tpu``, and for the port that names the accelerator.
-Without a CUDA device that raises (``serving.resolve_device``); nothing
+Without a CUDA device that raises (:func:`resolve_device`); nothing
 falls back to the CPU.
 """
 
@@ -11,7 +11,18 @@ from __future__ import annotations
 
 import torch
 
-from ..serving import resolve_device
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def runtime_device(name: str) -> torch.device:
