@@ -6,6 +6,7 @@ kernels against the same path on the plain versions.
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline DIR   # kernel rows 1, 2, 4, 5, 7 of the checkout in DIR beside these
     python3 chip_smoke.py --bn-act         # the one-pass eval BatchNorm kernel alone
+    python3 chip_smoke.py --gn-act         # the head's one-pass GroupNorm kernel alone
     python3 chip_smoke.py --mvdet          # MVDet's serving path and its kernels' shapes alone
 
 Phases, each of which raises on failure (exit code != 0): build (every
@@ -13,7 +14,7 @@ Phases, each of which raises on failure (exit code != 0): build (every
 the model paths give them, each against its plain version and timed at
 its main shapes against the least time the card could take
 (kernel_phase, grouped_phase, perframe_kernel_phase, ablation_phase,
-bn_act_phase); serving (serving_phase over :data:`SERVE_CASES`, then
+bn_act_phase, gn_act_phase); serving (serving_phase over :data:`SERVE_CASES`, then
 mvdet_phase); export (export_phase: replays bit-equal to eager serving,
 int8); training (training_cases over :data:`TRAIN_CASES`); the training
 loop and the CLIs (loop_phase); determinism; the mesh
@@ -22,7 +23,7 @@ loop and the CLIs (loop_phase); determinism; the mesh
 
 It times kernels, not requests: ``benchmark/run.py`` owns latency,
 frames/s and memory. Prints the kernels JSON line (the eight TPU kernels'
-rows, then bn_act's), the nvidia-smi line, then as the last line
+rows, then bn_act's and gn_act's), the nvidia-smi line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
 and outside a checkout of the repository.
 """
@@ -521,12 +522,12 @@ def bn_act_case(label, x, mean, var, weight, bias, eps, act):
     return worst
 
 
-def bn_act_times(dev, x, mean, var, weight, bias, eps, act, reps=20):
-    """(kernel ms, bound ms) a launch, device time: ``reps`` launches in
-    one CUDA graph (no host overhead between them, as in a replayed
-    request), the input cycled through enough copies (COLD_BYTES) that
-    each launch reads it from device memory; the bound 4 bytes an element."""
-    from vsta_tpu_torch.ops.bn_act_cuda import bn_act
+def pass_times(dev, launch, x, bytes_per_element, reps=20):
+    """(kernel ms, bound ms) of ``launch(x)``, a one-pass kernel over the
+    bf16 map x, device time: ``reps`` launches in one CUDA graph (no host
+    overhead between them, as in a replayed request), x cycled through
+    enough copies (COLD_BYTES) that each launch reads it from device
+    memory; the bound ``bytes_per_element`` over the HBM's bandwidth."""
     from vsta_tpu_torch.utils.timing import cuda_ms
 
     nbytes = 2 * x.numel()
@@ -534,15 +535,23 @@ def bn_act_times(dev, x, mean, var, weight, bias, eps, act, reps=20):
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        bn_act(x, mean, var, weight, bias, eps, act)
+        launch(x)
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for r in range(reps):
-            bn_act(copies[r % len(copies)], mean, var, weight, bias, eps, act)
+            launch(copies[r % len(copies)])
     ms = cuda_ms(graph.replay, warmup=2, iters=5) / reps
     del graph
-    return ms, 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    return ms, x.numel() * bytes_per_element / HBM_BYTES_PER_S * 1e3
+
+
+def bn_act_times(dev, x, mean, var, weight, bias, eps, act):
+    """:func:`pass_times` of bn_act: x read once and written once, 4
+    bytes an element."""
+    from vsta_tpu_torch.ops.bn_act_cuda import bn_act
+
+    return pass_times(dev, lambda t: bn_act(t, mean, var, weight, bias, eps, act), x, 4)
 
 
 def bn_act_phase(dev):
@@ -599,6 +608,157 @@ def bn_act_phase(dev):
     return {"name": "bn_act", "route": "cuda", "source": BN_ACT_SRC, "replaces": None,
             "launches": bn_act.launches - launches0, "max_ulps": worst, "ms": t["ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "batch1": totals[BN_ACT_BATCHES[1]], "other_shapes": []}
+
+
+# -- the CenterNet head's GroupNorm and its ReLU in one pass (csrc/gn_act.cu) --
+
+GN_ACT_SRC = "vsta_tpu_torch/csrc/gn_act.cu"
+GN_ACT_CHANNELS = (512, 128, 128)  # the head's three GroupNorms (mid1, mid2, mid2) on the 120 x 360 BEV
+GN_ACT_BATCHES = (16, 1)  # the offline cells' request and the live cell's
+# GroupNorms a bf16 request runs through gn_act: the CenterNet head's three
+# (wildtrack_sanity is f32, MVDet's head has none, an int8 head runs its own)
+GN_ACT_A_REQUEST = {"flagship": 3, "flagship per-frame": 3, "deform": 3, "sanity": 0, "resnet50": 3, "ms_max": 3,
+                    "mvdet": 0}
+# the device kernels of one gn_act launch, and the moments pass of PyTorch's own GroupNorm
+GN_ACT_KERNELS = ("gn_act_stats_kernel", "gn_act_coeffs_kernel", "gn_act_apply_kernel")
+GN_MOMENTS = "RowwiseMomentsCUDAKernel"
+
+
+def gn_act_inputs(dev, N, C, H, W, seed):
+    """x [N, C, H, W] bf16 channels-last, every channel about a mean and
+    spread of its own (as a convolution's output), and GroupNorm's weight
+    and bias [C] float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mean = torch.randn(C, generator=g, device=dev)
+    std = 0.3 + 1.7 * torch.rand(C, generator=g, device=dev)
+    weight = 1.0 + 0.5 * torch.randn(C, generator=g, device=dev)
+    bias = 0.5 * torch.randn(C, generator=g, device=dev)
+    x = (torch.randn((N, H, W, C), generator=g, device=dev) * std + mean).to(torch.bfloat16)
+    return x.permute(0, 3, 1, 2), weight, bias
+
+
+def gn_act_case(label, x, weight, bias, act):
+    """One case: two launches bit-equal; the output channels-last; against
+    the plain version (``F.group_norm`` in f32 over an NCHW copy, the cast,
+    ``F.relu``) at least 99.9 % of elements bit-equal, and every element
+    within 1 bf16 ulp of |ref| + 1e-6 max|ref| (``hold``'s bf16 rule): the
+    two take the same f32 form a * x + b (PyTorch's affine pass contracts to
+    one fused multiply-add) from statistics summed in two orders (Welford's
+    running update; shifted sums and pairwise merges), a few f32 units
+    apart, so an element lies one bf16 step off where its f32 value sits on
+    a rounding boundary, and further only where a * x + b cancels to near 0
+    (the second term). Returns the largest distance in bf16 ulps."""
+    from vsta_tpu_torch.models.heads import GN_EPS, GN_GROUPS
+    from vsta_tpu_torch.ops.gn_act_cuda import gn_act, gn_act_ref
+
+    got = gn_act(x, weight, bias, GN_GROUPS, GN_EPS, act)
+    again = gn_act(x, weight, bias, GN_GROUPS, GN_EPS, act)
+    check(got.stride() == x.stride(), f"[gn_act] {label}: output strides {got.stride()} != input's {x.stride()}")
+    check(torch.equal(got.view(torch.int16), again.view(torch.int16)), f"[gn_act] {label}: two launches differ")
+    ref = gn_act_ref(x, weight, bias, GN_GROUPS, GN_EPS, act)
+    ulps = bf16_ulps_apart(got, ref)
+    worst, same = int(ulps.max()), 1.0 - int((ulps != 0).sum()) / ulps.numel()
+    err = hold(f"gn_act {label}", got, ref, "bf16")
+    log(f"[gn_act] {label}: {x.numel()} elements, against the plain version {100 * same:.4f} % bit-equal, max "
+        f"{worst} bf16 ulp (max abs {err:.3e}); two launches bit-equal {'ok' if same >= 0.999 else 'FAIL'}")
+    check(same >= 0.999, f"[gn_act] {label}: {100 * same:.4f} % bit-equal to the plain version")
+    return worst
+
+
+def gn_act_replay(dev):
+    """The flagship's batch-16 artifact as one CUDA graph: gn_act's
+    launches at the load (3 a request), then one profiled replay runs each
+    of its three kernels 3 times and no moments pass of PyTorch's
+    GroupNorm. Returns the three GroupNorms' device ms in that replay."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsta_tpu_torch.export import WARMUP_REQUESTS, export_serving, load_serving, save_exported
+    from vsta_tpu_torch.ops.gn_act_cuda import gn_act
+
+    B, per_request = 16, GN_ACT_A_REQUEST["flagship"]
+    cfg, state, inputs = export_config("flagship")
+    args = tuple(torch.as_tensor(a[:B], device=dev) for a in inputs)
+    tmp = tempfile.mkdtemp(prefix="vsta_gn_act_")
+    try:
+        path = Path(tmp) / f"flagship_b{B}.pt"
+        save_exported(export_serving(cfg, state, batch_size=B, platforms=(dev.type,)), path)
+        n = gn_act.launches
+        served = load_serving(path, device=dev)
+        at_load = gn_act.launches - n
+        check(at_load == per_request * (WARMUP_REQUESTS + 2), f"[gn_act] {at_load} launches at the load")
+        check_served(cfg, served(*args), B)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            served(*args)
+            torch.cuda.synchronize()
+        names = (*GN_ACT_KERNELS, GN_MOMENTS)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_replay = {name: sum(is_kernel(e.name, name) for e in events) for name in names}
+        us = sum(e.time_range.elapsed_us() for e in events if any(is_kernel(e.name, k) for k in GN_ACT_KERNELS))
+        log(f"[gn_act] flagship B={B} artifact: {at_load} launches at the load; one profiled replay: "
+            f"{len(events)} device operations, {json.dumps(per_replay)}, the GroupNorms' kernels {us / 1e3:.4f} ms")
+        check(per_replay == {**dict.fromkeys(GN_ACT_KERNELS, per_request), GN_MOMENTS: 0},
+              f"[gn_act] one replay's kernels {per_replay}")
+        del served
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state, args
+    torch.cuda.empty_cache()
+    return us / 1e3
+
+
+def gn_act_phase(dev):
+    """csrc/gn_act.cu against its plain version at the CenterNet head's
+    three GroupNorms (C = 512, 128, 128 over 120 x 360 cells) at batch 16
+    and 1, channels-last, with the ReLU and without, each held by
+    :func:`gn_act_case`; a CUDA f32 map refused. Then each as the head runs
+    it timed against its bound, and one profiled replay of the flagship's
+    batch-16 artifact (:func:`gn_act_replay`). Returns the kernels-line
+    entry (ms, bound_ms: the three of a batch-16 request summed)."""
+    from vsta_tpu_torch.models.heads import GN_EPS, GN_GROUPS
+    from vsta_tpu_torch.ops.gn_act_cuda import gn_act
+
+    Hb, Wb = BEV_HW
+    worst, launches0 = 0, gn_act.launches
+    for B in GN_ACT_BATCHES:
+        for i, C in enumerate(dict.fromkeys(GN_ACT_CHANNELS)):
+            x, weight, bias = gn_act_inputs(dev, B, C, Hb, Wb, seed=4000 + 10 * B + i)
+            for act in ("relu", None):
+                worst = max(worst, gn_act_case(f"N={B} C={C} {Hb}x{Wb} nhwc {act}", x, weight, bias, act))
+            del x
+    x, weight, bias = gn_act_inputs(dev, 1, 128, Hb, Wb, seed=4100)
+    try:
+        gn_act(x.float(), weight, bias, GN_GROUPS, GN_EPS, "relu")
+        check(False, "[gn_act] a CUDA f32 map did not raise")
+    except ValueError:
+        pass
+    del x
+    torch.cuda.empty_cache()
+
+    totals = {}
+    for B in GN_ACT_BATCHES:
+        rows = []
+        for i, C in enumerate(GN_ACT_CHANNELS):
+            x, weight, bias = gn_act_inputs(dev, B, C, Hb, Wb, seed=4200 + 10 * B + i)
+            # 6 bytes an element: read for the statistics, read again and written by the normalisation
+            ms, bound_ms = pass_times(dev, lambda t: gn_act(t, weight, bias, GN_GROUPS, GN_EPS, "relu"), x, 6)
+            rows.append({"C": C, "HxW": f"{Hb}x{Wb}", "ms": round(ms, 4), "bound_ms": round(bound_ms, 4),
+                         "share": round(bound_ms / ms, 3)})
+            del x
+            torch.cuda.empty_cache()
+        totals[B] = {k: sum(r[k] for r in rows) for k in ("ms", "bound_ms")}
+        log(f"[gn_act] N={B}, the head's three as it runs them (channels-last, ReLU), ms a launch: {json.dumps(rows)}")
+        log(f"[gn_act] N={B}, a request's three: kernel {totals[B]['ms']:.4f} ms, bound {totals[B]['bound_ms']:.4f} "
+            f"ms (share {totals[B]['bound_ms'] / totals[B]['ms']:.3f}); each input read once: "
+            f"{totals[B]['bound_ms'] * 2 / 3:.4f} ms")
+    replay_ms = gn_act_replay(dev)
+    t = totals[GN_ACT_BATCHES[0]]
+    return {"name": "gn_act", "route": "cuda", "source": GN_ACT_SRC, "replaces": None,
+            "launches": gn_act.launches - launches0, "max_ulps": worst, "ms": t["ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "batch1": totals[GN_ACT_BATCHES[1]], "replay_ms": replay_ms, "other_shapes": []}
 
 
 def deform_taps(dev, B, stride, seed=2):
@@ -998,7 +1158,7 @@ def heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(16, 1)):
     differ by no more than 2 bf16 ulps of |ref|, and an f32 model's by no
     more than 16 f32 ulps of |ref| (summation order alone; a bf16 rounding
     anywhere on the path would exceed it by orders of magnitude)."""
-    from vsta_tpu_torch.ops import bn_act_cuda
+    from vsta_tpu_torch.ops import bn_act_cuda, gn_act_cuda
     from vsta_tpu_torch.ops import grouped_cuda as gc
     from vsta_tpu_torch.ops.warp_cuda import warp_tiles, warp_tiles_ref
     from vsta_tpu_torch.ops.warp_views_cuda import warp_views_sum, warp_views_sum_ref
@@ -1009,12 +1169,14 @@ def heatmaps_kernels_vs_plain(serve, inputs, counters, label, batches=(16, 1)):
         got = serve(*args)["heatmap"]
         before = [c.launches for c in counters]
         model.warp, model.views_sum, model.grouped = warp_tiles_ref, warp_views_sum_ref, gc.PLAIN
-        bn_act, bn_act_cuda.bn_act = bn_act_cuda.bn_act, bn_act_cuda.bn_act_ref  # BatchNorm looks it up a call
+        # BatchNorm and the head look them up a call
+        bn_act, bn_act_cuda.bn_act = bn_act_cuda.bn_act, bn_act_cuda.bn_act_ref
+        gn_act, gn_act_cuda.gn_act = gn_act_cuda.gn_act, gn_act_cuda.gn_act_ref
         try:
             ref = serve(*args)["heatmap"]
         finally:
             model.warp, model.views_sum, model.grouped = warp_tiles, warp_views_sum, gc.KERNELS
-            bn_act_cuda.bn_act = bn_act
+            bn_act_cuda.bn_act, gn_act_cuda.gn_act = bn_act, gn_act
         check([c.launches for c in counters] == before, "the plain-version run launched a kernel")
         diff = (got - ref).abs()
         f32 = model.dtype == torch.float32
@@ -1673,23 +1835,28 @@ class ServeCase(NamedTuple):
 
 
 SERVE_CASES = {
-    "serve": ServeCase(FLAGSHIP, {"warp_tiles": 1, "bn_act": BN_ACT_A_REQUEST["flagship"]}),
-    # batch 16 in f32 takes the windowed dispatch (f32 out), and the plain BatchNorm
+    "serve": ServeCase(FLAGSHIP, {"warp_tiles": 1, "bn_act": BN_ACT_A_REQUEST["flagship"],
+                                  "gn_act": GN_ACT_A_REQUEST["flagship"]}),
+    # batch 16 in f32 takes the windowed dispatch (f32 out), and the plain BatchNorm and GroupNorm
     "serve f32": ServeCase(FLAGSHIP, {"warp_tiles": 1}, f32=True, batches=(16,), heatmaps=()),
-    "deform-serve": ServeCase(DEFORM, {"sample_tiles_grouped": 2, "bn_act": BN_ACT_A_REQUEST["deform"]}),
+    "deform-serve": ServeCase(DEFORM, {"sample_tiles_grouped": 2, "bn_act": BN_ACT_A_REQUEST["deform"],
+                                       "gn_act": GN_ACT_A_REQUEST["deform"]}),
     # another calibration in every frame: the LUT is built every request
-    "perframe-concat": ServeCase(FLAGSHIP, {"warp_views_sum": 1, "bn_act": BN_ACT_A_REQUEST["flagship per-frame"]},
+    "perframe-concat": ServeCase(FLAGSHIP, {"warp_views_sum": 1, "bn_act": BN_ACT_A_REQUEST["flagship per-frame"],
+                                            "gn_act": GN_ACT_A_REQUEST["flagship per-frame"]},
                                  {"static_cameras": False}, expect={"fusion": "concat"}),
-    "perframe-deform_attn": ServeCase(DEFORM, {"sample_tiles_grouped": 2, "bn_act": BN_ACT_A_REQUEST["flagship"]},
+    "perframe-deform_attn": ServeCase(DEFORM, {"sample_tiles_grouped": 2, "bn_act": BN_ACT_A_REQUEST["flagship"],
+                                               "gn_act": GN_ACT_A_REQUEST["deform"]},
                                       {"static_cameras": False}, expect={"fusion": "deform_attn"}),
     # every view's BEV map through warp_views (G = 112, K = FEAT_DIM); the
     # heatmaps at batch 1 alone: the plain sampler at 16 would hold copies
     # of 12.4 GB of maps (grouped_phase holds that shape group by group)
-    **{f"fusion-{fusion}": ServeCase(FLAGSHIP, {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST["flagship"]},
+    **{f"fusion-{fusion}": ServeCase(FLAGSHIP, {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST["flagship"],
+                                                "gn_act": GN_ACT_A_REQUEST["flagship"]},
                                      {"fusion": fusion, "warp_impl": "gather"}, heatmaps=(1,))
        for fusion in ("max", "attn")},
-    **{f"resnet-serve {name}": ServeCase(path, {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST[name]},
-                                         capture=True)
+    **{f"resnet-serve {name}": ServeCase(path, {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST[name],
+                                                "gn_act": GN_ACT_A_REQUEST[name]}, capture=True)
        for name, path in RESNET_CONFIGS.items()},
 }
 
@@ -1987,7 +2154,8 @@ def taps_bound_ms(idx, wts, P: int, K: int, itemsize: int = 2) -> float:
     return (distinct * K * itemsize + G * N * K * itemsize + G * N * T * 8) / HBM_BYTES_PER_S * 1e3
 
 
-MVDET_CASE = ServeCase(MVDET, {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST["mvdet"]},
+MVDET_CASE = ServeCase(MVDET, {"sample_tiles_grouped": 1, "bn_act": BN_ACT_A_REQUEST["mvdet"],
+                               "gn_act": GN_ACT_A_REQUEST["mvdet"]},
                        batches=(MVDET_BATCH,), requests=1, heatmaps=(), capture=True)
 
 
@@ -2400,7 +2568,8 @@ def export_phase(dev):
 
     def artifacts(name, label, cfg, state, inputs, quant):
         """Eager serving, then an artifact at each batch size: {B: heatmap}."""
-        per_request = {**EXPORT_LAUNCHES[name], "bn_act": 0 if "quant_encoder" in quant else BN_ACT_A_REQUEST[name]}
+        per_request = {**EXPORT_LAUNCHES[name], "bn_act": 0 if "quant_encoder" in quant else BN_ACT_A_REQUEST[name],
+                       "gn_act": 0 if "quant_head" in quant else GN_ACT_A_REQUEST[name]}
         eager = eager_reference(dev, cfg, state, inputs, per_request, quant)
         out = {}
         for B in EXPORT_BATCHES:
@@ -2952,13 +3121,16 @@ def main() -> int:
     if "--bn-act" in sys.argv:  # the one-pass BatchNorm kernel alone
         bn_act_phase(dev)
         return 0
+    if "--gn-act" in sys.argv:  # the one-pass GroupNorm kernel alone
+        gn_act_phase(dev)
+        return 0
     if "--mvdet" in sys.argv:  # MVDet's serving path alone
         mvdet_phase(dev)
         return 0
 
     t = time.perf_counter()
     entries = kernel_phase(dev) + grouped_phase(dev) + [perframe_kernel_phase(dev)]
-    ablation_entry, bn_entry = ablation_phase(dev), bn_act_phase(dev)
+    ablation_entry, bn_entry, gn_entry = ablation_phase(dev), bn_act_phase(dev), gn_act_phase(dev)
     log(f"[kernel] phases {time.perf_counter() - t:.1f}s")
     # launches on the model paths by kernels-line entry, each path counted
     # from 0 over its own run (an artifact's at its capture: a replay goes
@@ -2980,7 +3152,7 @@ def main() -> int:
                 entry["other_shapes"].append(reading[entry["name"]])
     entries.append(ablation_entry)
     check(len(entries) == 8, "the kernels line lists eight TPU kernels")
-    entries.append(bn_entry)  # replaces no TPU kernel
+    entries += [bn_entry, gn_entry]  # replace no TPU kernel
     for entry in entries:
         if entry is not ablation_entry:
             entry["launches"] = total.get(entry["name"], 0)

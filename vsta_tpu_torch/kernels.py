@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import atexit
 import ctypes
+import functools
 import hashlib
 import json
 import os
@@ -92,17 +93,32 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(idx: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(idx).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """The SMs of CUDA device ``dev`` (a ``torch.device``; no index: the
+    current device)."""
+    import torch
+
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
 def wrappers(ablation: bool = True) -> tuple:
     """Every kernel wrapper; each counts its launches in ``.launches``.
     Without ``ablation``, those on the model paths only: all but
     ``warp_tiles_variant``."""
-    from .ops import bn_act_cuda, grouped_cuda, warp_cuda, warp_views_cuda
+    from .ops import bn_act_cuda, gn_act_cuda, grouped_cuda, warp_cuda, warp_views_cuda
 
     on_paths = (
         warp_cuda.warp_tiles, warp_views_cuda.warp_views_sum,
         grouped_cuda.sample_tiles_grouped, grouped_cuda.scatter_tapdot_grouped,
         grouped_cuda.scatter_taps_grouped, grouped_cuda.taps_dot_grouped,
-        bn_act_cuda.bn_act,
+        bn_act_cuda.bn_act, gn_act_cuda.gn_act,
     )
     return on_paths + ((warp_cuda.warp_tiles_variant,) if ablation else ())
 

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import gn_act_cuda
+
 HEATMAP_BIAS = -2.19
 GN_GROUPS, GN_EPS = 32, 1e-5
 
@@ -66,16 +68,32 @@ class BEVDetectorHead(nn.Module):
         b = None if c.bias is None else c.bias.to(dtype)
         return F.conv2d(x.to(dtype), c.weight.to(dtype), b, 1, c.padding, c.dilation)
 
-    def _gn(self, x, gn: nn.GroupNorm) -> torch.Tensor:
-        return F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias, gn.eps).to(x.dtype)
+    @staticmethod
+    def fused(x: torch.Tensor, gn: nn.GroupNorm) -> bool:
+        """Whether a GroupNorm and its ReLU take the one-pass kernel for x:
+        the kernel takes x (:func:`~vsta_tpu_torch.ops.gn_act_cuda.takes`:
+        bfloat16, channels-last, as the convolutions give a map of the
+        channels-last input) and no gradient is wanted (grad mode off, or
+        neither x nor the affine parameters require one)."""
+        wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, gn.weight, gn.bias))
+        return not wants_grad and gn_act_cuda.takes(x, gn.weight, gn.bias, gn.num_groups)
+
+    def _gn_relu(self, x, gn: nn.GroupNorm) -> torch.Tensor:
+        """GroupNorm in float32, cast to x's dtype, then the ReLU: one
+        kernel (``ops/gn_act_cuda.py``) for a CUDA map that :meth:`fused`
+        admits, the plain version for anything else."""
+        args = (x, gn.weight, gn.bias, gn.num_groups, gn.eps, "relu")
+        if x.is_cuda and self.fused(x, gn):
+            return gn_act_cuda.gn_act(*args)
+        return gn_act_cuda.gn_act_ref(*args)
 
     def forward(self, bev_feat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """bev_feat [B, H, W, C] -> heads dict (channels-last, float32)."""
         d = self.dtype
         x = bev_feat.permute(0, 3, 1, 2)
-        y = F.relu(self._gn(self._conv(x, self.stem0, d), self.gn0))
-        y = F.relu(self._gn(self._conv(y, self.stem1, d), self.gn1))
-        shared = F.relu(self._gn(self._conv(y, self.stem2, d), self.gn2))
+        y = self._gn_relu(self._conv(x, self.stem0, d), self.gn0)
+        y = self._gn_relu(self._conv(y, self.stem1, d), self.gn1)
+        shared = self._gn_relu(self._conv(y, self.stem2, d), self.gn2)
         # the output convs keep Flax's default float32 (no dtype= in the
         # JAX head), so the bf16 stem output is promoted here
         f32 = torch.float32

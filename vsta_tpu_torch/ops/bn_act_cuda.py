@@ -15,7 +15,6 @@ launches the kernel, any other CUDA tensor raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -72,16 +71,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(idx: int) -> int:
-    return torch.cuda.get_device_properties(idx).multi_processor_count
-
-
 def grid_blocks(dev: torch.device, work: int) -> int:
     """Blocks of the grid-stride loop over ``work`` items (words or
     elements): enough to fill every SM, no more than the work needs."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    return max(1, min(_sm_count(idx) * BLOCKS_PER_SM, -(-work // THREADS)))
+    return max(1, min(kernels.sm_count(dev) * BLOCKS_PER_SM, -(-work // THREADS)))
 
 
 def bn_act(x, mean, var, weight, bias, eps: float, act: Optional[str] = None) -> torch.Tensor:
